@@ -1,0 +1,120 @@
+"""Command-line driver (the reference binary ``rslmto.x`` equivalent).
+
+Usage (reference ``source/os.f90 argument_parser`` :34-158 and
+``calculation.f90 process`` :175-211)::
+
+    python -m rslmtoasa_tpu_torch [input.nml] [nml=extra.nml ...]
+                                  [output=dir] [device=cuda|cpu]
+
+Reads the namelist input and runs the bulk self-consistent field
+(``pre_processing`` ``none`` or ``bravais``, no ``processing`` and no
+``post_processing``), writes the reference's output files
+(totaldos.out, <El>_out.nml, report.out, ...), and prints the
+hierarchical timing report.  The recursion runs on ``device`` (default
+``cuda``; without a card that raises).  Every other ``&calculation``
+branch raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+from .config import JobConfig
+from .utils.device import resolve_device
+from .utils.logger import g_logger
+from .utils.namelist import read_namelists
+from .utils.timer import g_timer
+
+VALID_PRE = {"none", "bravais", "buildsurf", "newclubulk", "newclusurf"}
+VALID_PROC = {"none", "sd"}
+VALID_POST = {"none", "exchange", "exchange_p2rs", "conductivity",
+              "conductivity_p2rs", "paoflow2rs", "orbital_modern"}
+# the branches this port runs; the rest are queued in ROADMAP.md
+PORTED_PRE = {"none", "bravais"}
+
+
+def parse_args(argv):
+    input_file = "input.nml"
+    extra = []
+    outdir = "."
+    device = "cuda"
+    for arg in argv:
+        if arg.startswith("nml="):
+            extra.append(arg[4:])
+        elif arg.startswith("output="):
+            outdir = arg[7:]
+        elif arg.startswith("device="):
+            device = arg[7:]
+        else:
+            input_file = arg
+    return input_file, extra, outdir, device
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    input_file, extra, outdir, device = parse_args(argv)
+    dev = resolve_device(device)
+    if not os.path.exists(input_file):
+        g_logger.error(f"input file {input_file} not found")
+        return 1
+    nml = read_namelists(input_file)
+    for path in extra:
+        nml.merge(read_namelists(path))
+    cfg = JobConfig.from_namelists(nml, fname=input_file)
+    os.makedirs(outdir, exist_ok=True)
+    if cfg.atoms.database in ("", "./", "."):
+        cfg.atoms.database = os.path.dirname(os.path.abspath(input_file))
+    return run_calculation(cfg, outdir, device=dev)
+
+
+def run_calculation(cfg: JobConfig, workdir: str = ".",
+                    device="cuda") -> int:
+    """Run the dispatched pipeline for a built config (the body of
+    ``calculation%process``, calculation.f90:175-211)."""
+    pre = (cfg.calculation.pre_processing or "none").strip()
+    proc = (cfg.calculation.processing or "none").strip()
+    post = (cfg.calculation.post_processing or "none").strip()
+    for val, ok in ((pre, VALID_PRE), (proc, VALID_PROC), (post, VALID_POST)):
+        if val not in ok:
+            g_logger.error(f"invalid calculation stage {val!r}")
+            return 1
+    if pre not in PORTED_PRE or proc != "none" or post != "none":
+        raise NotImplementedError(
+            f"&calculation pre_processing={pre!r} processing={proc!r} "
+            f"post_processing={post!r}: only the bulk SCF is ported; see "
+            "ROADMAP.md queue 1 for the other branches")
+    if cfg.lattice.write_artifacts:
+        raise NotImplementedError(
+            "&lattice write_artifacts: the geometry exports are ROADMAP "
+            "queue 1, item 14 (entry points)")
+
+    from .models.bulk import BulkSystem
+    from .models.scf import SelfConsistency
+
+    os.makedirs(workdir, exist_ok=True)
+    sys_ = BulkSystem.build(cfg, workdir, device=device)
+    scf = SelfConsistency(sys_, workdir)
+    state = scf.run()
+    g_logger.info(
+        f"SCF finished: converged={state.converged} "
+        f"delta={state.delta:.3e}"
+    )
+    scf.report()
+    if pre == "bravais" and getattr(scf, "bands", None) is not None:
+        # post-SCF export of pre_processing_bravais (calculation.f90
+        # :619-621); the rs2pao export beside it is PAOFLOW, ROADMAP
+        # queue 1, item 12
+        g_logger.warning("rs2paoham.dat not written: the PAOFLOW export "
+                         "is not ported yet (ROADMAP queue 1, item 12)")
+        scf.bands.calculate_orbital_quadrupoles(scf.last_g0, workdir)
+
+    print(g_timer.report())
+    from .utils.alloc import g_alloc
+
+    print(g_alloc.report())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

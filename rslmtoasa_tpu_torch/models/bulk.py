@@ -1,0 +1,179 @@
+"""Bulk calculation pipeline: geometry -> Hamiltonian -> recursion -> LDOS.
+
+Mirrors the reference's ``pre_processing='bravais'`` setup
+(``calculation.f90 pre_processing_bravais`` :550-623) followed by the
+scalar-Haydock pieces of ``self%run`` (``self.f90`` :676-764).  Geometry,
+structure constants and the Hamiltonian are built on the host (NumPy);
+the recursion runs on ``device`` through the Haydock kernels.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..atoms.potential import SymbolicAtom
+from ..config import JobConfig
+from ..geometry import (
+    bravais_cluster,
+    neighbor_map,
+    primitive_cell,
+    sbar_for_cluster,
+)
+from ..ops.lanczos import HaydockOperator, scalar_start_vectors
+from ..ops.ldos import orbital_density
+from ..physics.energy_mesh import EnergyMesh
+from ..physics.hamiltonian import HamiltonianBlocks, build_bulkham
+from ..utils.device import resolve_device
+from ..utils.logger import g_logger
+from ..utils.timer import g_timer
+
+
+@dataclass
+class BulkSystem:
+    cfg: JobConfig
+    workdir: str = "."
+    cluster: object = None
+    atoms: List[SymbolicAtom] = field(default_factory=list)
+    sbars: Optional[list] = None
+    sbarvecs: Optional[list] = None
+    ham: Optional[HamiltonianBlocks] = None
+    emesh: Optional[EnergyMesh] = None
+    device: torch.device = torch.device("cpu")
+
+    @classmethod
+    def build(cls, cfg: JobConfig, workdir: str = ".",
+              device="cuda") -> "BulkSystem":
+        sys = cls(cfg=cfg, workdir=workdir, device=resolve_device(device))
+        lat = cfg.lattice
+        pre = (cfg.calculation.pre_processing or "").strip()
+        if cfg.control.calctype != "B" or pre == "newclusurf":
+            raise NotImplementedError(
+                f"calctype={cfg.control.calctype!r} / pre_processing="
+                f"{pre!r}: surface and impurity clusters are ROADMAP "
+                "queue 1, item 9 (surface and impurity)")
+        # historical defaults when &lattice omits ct / r2 (the reference's
+        # commented-out build_data fallback ct = alat + 0.1, r2 = ct^2 —
+        # inputs like example/exchange/bccFe rely on them)
+        if lat.ct[0] == 0.0:
+            lat.ct[:] = lat.alat + 0.1
+        if lat.r2 == 0.0:
+            lat.r2 = float(lat.ct[0]) ** 2
+        with g_timer.section("geometry"):
+            # crystal_sym='file' reads the general user cell from a
+            # lattice.nml sidecar next to the input file (build_data
+            # 'file' branch, lattice.f90:925 -> build_from_lattice :660)
+            lattice_file = os.path.join(
+                os.path.dirname(os.path.abspath(cfg.control.fname or ".")),
+                "lattice.nml")
+            cell = primitive_cell(lat.crystal_sym, lat.celldm,
+                                  lattice_file=lattice_file)
+            cl = bravais_cluster(
+                cell,
+                alat=lat.alat,
+                rc=lat.rc,
+                ndim=lat.ndim,
+                npe=lat.npe,
+                wav=lat.wav,
+                calctype=cfg.control.calctype,
+                pbc=bool(lat.pbc),
+                pbc_dims=(lat.n1, lat.n2, lat.n3),
+                pbc_wrap=(bool(lat.b1), bool(lat.b2), bool(lat.b3)),
+            )
+            cl._ct1 = float(lat.ct[0])
+            if cell.iu is not None:
+                # bookkeeping straight from the user lattice.nml
+                cl.iu = cell.iu.copy()
+                cl.ib = cell.ib.copy()
+                cl.irec = cell.irec.copy()
+                cl.nrec = cell.nrec
+                cl.atlist = np.concatenate([cl.ib, cl.irec]) \
+                    if cl.nbulk else cl.irec.copy()
+                cl.ntype = max(cl.ntype, int(cl.iz.max()))
+            neighbor_map(cl, ct1=float(lat.ct[0]))
+        g_logger.info(
+            f"cluster built: kk={cl.kk}, nnmax={cl.nn.shape[1]}, "
+            f"ntype={cl.ntype}"
+        )
+        with g_timer.section("structure-constants"):
+            sys.sbars, sys.sbarvecs = sbar_for_cluster(
+                cl.cr_ang, cl.iu, cl.wav, lat.r2
+            )
+        sys.cluster = cl
+        with g_timer.section("element-db"):
+            for label in cfg.atoms.labels:
+                sys.atoms.append(
+                    SymbolicAtom.from_file(label, cfg.atoms.database or workdir)
+                )
+        sys.emesh = EnergyMesh.build(cfg.energy)
+        return sys
+
+    # ------------------------------------------------------------------
+    def build_hamiltonian(self) -> HamiltonianBlocks:
+        """``run_recursion`` setup part: build_pot + build_bulkham."""
+        for at in self.atoms:
+            at.potential.build_pot()
+        with g_timer.section("build-bulkham"):
+            self.ham = build_bulkham(
+                self.cluster,
+                self.atoms,
+                self.sbars,
+                self.sbarvecs,
+                hoh=self.cfg.hamiltonian.hoh,
+                with_soc=self.cfg.control.nsp in (2, 4),
+            )
+        return self.ham
+
+    # ------------------------------------------------------------------
+    def run_lanczos(self):
+        """Scalar Haydock recursion for all rec atoms (nsp=1 path).
+
+        Returns (a, b2) with shape (lld, 18, nrec): per-orbital chains in the
+        reference's ordering (9 up-spin then 9 down-spin orbitals).
+        """
+        cl = self.cluster
+        hb = self.ham
+        lld = self.cfg.control.lld
+        rec_atoms = [int(j) - 1 for j in cl.irec]
+        with g_timer.section("recursion"):
+            psi0 = scalar_start_vectors(cl.kk, rec_atoms, self.device)
+            a_list = []
+            b_list = []
+            for s in (0, 1):  # spin channels are decoupled for nsp=1
+                blk = hb.ee[:, :, 9 * s : 9 * (s + 1), 9 * s : 9 * (s + 1)]
+                op = HaydockOperator(blk, hb.iz, hb.cols).to(self.device)
+                a, b2 = op.coefficients(psi0, lld)
+                a_list.append(a.cpu().numpy())
+                b_list.append(b2.cpu().numpy())
+        nrec = len(rec_atoms)
+        # chains are laid out c = atom*9 + orbital; merge spins -> 18
+        a = np.zeros((lld, 18, nrec))
+        b2 = np.zeros((lld, 18, nrec))
+        for ia in range(nrec):
+            a[:, 0:9, ia] = a_list[0][:, ia * 9 : (ia + 1) * 9]
+            a[:, 9:18, ia] = a_list[1][:, ia * 9 : (ia + 1) * 9]
+            b2[:, 0:9, ia] = b_list[0][:, ia * 9 : (ia + 1) * 9]
+            b2[:, 9:18, ia] = b_list[1][:, ia * 9 : (ia + 1) * 9]
+        return a, b2
+
+    # ------------------------------------------------------------------
+    def ldos(self, a: np.ndarray, b2: np.ndarray):
+        """Per-atom per-orbital LDOS on the energy mesh (``dos%density``).
+
+        Returns tdens of shape (nrec, 18, npts).
+        """
+        em = self.emesh
+        nrec = a.shape[2]
+        out = np.zeros((nrec, 18, em.npts))
+        with g_timer.section("ldos"):
+            for ia in range(nrec):
+                pot = self.atoms[int(self.cluster.iz[ia]) - 1].potential
+                tdens, _, _ = orbital_density(
+                    a[:, :, ia], b2[:, :, ia], em.ene, pot.dw_l, pot.cshi
+                )
+                out[ia] = tdens
+        return out

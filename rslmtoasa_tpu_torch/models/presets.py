@@ -1,0 +1,171 @@
+"""Built-in synthetic system presets (no external database files needed).
+
+Used by the benchmark and the compile-check entry points: a bcc
+transition-metal-like species with physically plausible spd band
+parameters (magnitudes typical of 3d metals; values chosen here, not
+taken from any database file).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..atoms.potential import Element, Potential, SymbolicAtom
+from ..config import (
+    AtomsCfg,
+    CalculationCfg,
+    ControlCfg,
+    EnergyCfg,
+    HamiltonianCfg,
+    JobConfig,
+    LatticeCfg,
+    MixCfg,
+    SelfCfg,
+)
+from ..utils.device import resolve_device
+from ..utils.namelist import Namelists
+
+
+def synthetic_bcc_atom(label: str = "X") -> SymbolicAtom:
+    el = Element(symbol=label, atomic_number=26.0, core=18.0, valence=8.0,
+                 f_core=0, num_quant_s=4, num_quant_p=4, num_quant_d=3)
+    pot = Potential()
+    pot.ws_r = 2.66
+    # spd tight-binding band centers/widths (Ry), spin-split d band
+    pot.center_band[:, 0] = [-0.40, 0.34, -0.21]
+    pot.center_band[:, 1] = [-0.18, 0.40, -0.05]
+    pot.width_band[:, 0] = [0.40, 0.26, 0.12]
+    pot.width_band[:, 1] = [0.40, 0.27, 0.14]
+    pot.pl[:, 0] = [4.67, 4.41, 3.87]
+    pot.pl[:, 1] = [4.67, 4.43, 3.68]
+    pot.ql[0, :, 0] = [0.33, 0.37, 4.37]
+    pot.ql[0, :, 1] = [0.36, 0.44, 2.13]
+    pot.ql[2, :, 0] = [0.007, 0.005, 0.045]
+    pot.ql[2, :, 1] = [0.006, 0.007, 0.012]
+    pot.xi_p[:] = 0.012
+    pot.xi_d[:] = 0.004
+    # orthogonal-representation parameters consistent with the bands,
+    # so predls (potential.py:167) is well-defined AND idempotent:
+    # with c == enu (cme = 0) it maps center->center, width->srdel
+    # scaled by wow^(1/2-I) ~ 1 — the exchange module's predls call
+    # (exchange.f90 ordering) then cannot poison a re-run
+    pot.enu = pot.center_band.copy()
+    pot.c = pot.center_band.copy()
+    pot.srdel = pot.width_band.copy()
+    from ..atoms.potential import QM_CANONICAL as _QM
+
+    pot.qpar = np.broadcast_to(_QM[:3, None], (3, 2)).copy() + 0.05
+    return SymbolicAtom(element=el, potential=pot, label=label)
+
+
+def synthetic_bcc_config(rc: float = 50.0, ndim: int = 10000,
+                         lld: int = 16, nsp: int = 1,
+                         channels_ldos: int = 2500) -> JobConfig:
+    lat = LatticeCfg(rc=rc, ndim=ndim, alat=2.8612, wav=1.4088,
+                     crystal_sym="bcc", ntype=1, r2=9.0)
+    lat.ct = np.zeros(50)
+    lat.ct[0] = 3.0
+    return JobConfig(
+        calculation=CalculationCfg(pre_processing="bravais"),
+        control=ControlCfg(calctype="B", nsp=nsp, lld=lld,
+                           recur="lanczos" if nsp == 1 else "block"),
+        lattice=lat,
+        atoms=AtomsCfg(database="", labels=["X"]),
+        scf=SelfCfg(nstep=1),
+        energy=EnergyCfg(channels_ldos=channels_ldos, energy_min=-1.0,
+                         energy_max=0.5, fermi=-0.07),
+        mix=MixCfg(beta=0.3, mixtype="linear"),
+        hamiltonian=HamiltonianCfg(),
+        namelists=Namelists(),
+    )
+
+
+def build_synthetic_bcc(rc: float = 50.0, ndim: int = 10000, lld: int = 16,
+                        nsp: int = 1, hoh: bool = False, box: int = 0,
+                        device="cuda"):
+    """Geometry + Hamiltonian for the synthetic bcc system.
+
+    Returns a ready :class:`~rslmtoasa_tpu_torch.models.bulk.BulkSystem`
+    with the Hamiltonian built, recursing on ``device``.  ``box=n``
+    builds the full n x n x n supercell box
+    (the reference's ``pbc=.true.`` cluster shape, ``lattice.f90
+    bravais`` :1082-1089) instead of the spherical ``rc`` cut — the
+    cell grid is then fully occupied, which is the shape the conv
+    engines are speed-of-light on.
+    """
+    from .bulk import BulkSystem
+
+    cfg = synthetic_bcc_config(rc=rc, ndim=ndim, lld=lld, nsp=nsp)
+    cfg.hamiltonian.hoh = hoh
+    sys_ = BulkSystem.__new__(BulkSystem)
+    sys_.cfg = cfg
+    sys_.workdir = "."
+    sys_.device = resolve_device(device)
+    sys_.atoms = [synthetic_bcc_atom()]
+    sys_.sbars = None
+    sys_.sbarvecs = None
+    sys_.ham = None
+
+    from ..geometry import bravais_cluster, neighbor_map, primitive_cell, sbar_for_cluster
+    from ..physics.energy_mesh import EnergyMesh
+
+    cell = primitive_cell("bcc")
+    if box:
+        cl = bravais_cluster(cell, alat=cfg.lattice.alat, rc=rc,
+                             ndim=ndim, wav=cfg.lattice.wav, pbc=True,
+                             pbc_dims=(box, box, box))
+    else:
+        cl = bravais_cluster(cell, alat=cfg.lattice.alat, rc=rc,
+                             ndim=ndim, wav=cfg.lattice.wav)
+    neighbor_map(cl, ct1=3.0)
+    sys_.cluster = cl
+    sys_.sbars, sys_.sbarvecs = sbar_for_cluster(cl.cr_ang, cl.iu, cl.wav, 9.0)
+    sys_.emesh = EnergyMesh.build(cfg.energy)
+    sys_.build_hamiltonian()
+    return sys_
+
+
+def build_synthetic_b2(rc: float = 9.0, ndim: int = 10000, lld: int = 8,
+                       nsp: int = 2, hoh: bool = False, device="cuda"):
+    """Two-species B2 (CsCl) synthetic system: the smallest multi-site
+    cell, used to exercise the multi-site conv engines
+    (ops/msconv.py) against the gather engines."""
+    from .bulk import BulkSystem
+
+    cfg = synthetic_bcc_config(rc=rc, ndim=ndim, lld=lld, nsp=nsp)
+    cfg.lattice.crystal_sym = "b2"
+    cfg.lattice.ntype = 2
+    cfg.atoms.labels = ["X", "Y"]
+    cfg.hamiltonian.hoh = hoh
+    sys_ = BulkSystem.__new__(BulkSystem)
+    sys_.cfg = cfg
+    sys_.workdir = "."
+    sys_.device = resolve_device(device)
+    at2 = synthetic_bcc_atom("Y")
+    at2.potential.center_band[:, 0] = [-0.30, 0.28, -0.15]
+    at2.potential.center_band[:, 1] = [-0.22, 0.31, -0.09]
+    at2.potential.width_band[:, 0] = [0.37, 0.24, 0.11]
+    at2.potential.width_band[:, 1] = [0.37, 0.25, 0.13]
+    sys_.atoms = [synthetic_bcc_atom(), at2]
+    sys_.sbars = None
+    sys_.sbarvecs = None
+    sys_.ham = None
+
+    from ..geometry import (
+        bravais_cluster,
+        neighbor_map,
+        primitive_cell,
+        sbar_for_cluster,
+    )
+    from ..physics.energy_mesh import EnergyMesh
+
+    cell = primitive_cell("b2")
+    cl = bravais_cluster(cell, alat=cfg.lattice.alat, rc=rc, ndim=ndim,
+                         wav=cfg.lattice.wav)
+    neighbor_map(cl, ct1=3.0)
+    sys_.cluster = cl
+    sys_.sbars, sys_.sbarvecs = sbar_for_cluster(cl.cr_ang, cl.iu, cl.wav,
+                                                 9.0)
+    sys_.emesh = EnergyMesh.build(cfg.energy)
+    sys_.build_hamiltonian()
+    return sys_

@@ -1,0 +1,259 @@
+"""The Haydock recursion's two device kernels, their plain versions and
+their build.
+
+* :func:`spmv_dot` -- ``y = H psi`` on the ELL/BSR layout plus the
+  per-row-block partials of ``Re<psi|y>`` that give the Lanczos ``a``.
+  Replaces ``rslmtoasa_tpu/ops/pallas_conv.py`` ``_spmv_kernel`` (via
+  ``conv_spmv_df64_pallas``).
+* :func:`update_norm` -- ``pmn' = pmn + v - a psi`` plus the
+  per-row-block partials of ``|pmn'|^2`` that give ``b2``.  Replaces
+  ``pallas_conv.py`` ``_update_kernel`` (via ``lanczos_update_pallas``).
+
+The CUDA sources are ``csrc/haydock.cu`` (``sm_90a``, plain C interface,
+loaded with ctypes).  The library is built with nvcc into ``_build/`` at
+first use, and again whenever the source is newer than the library.
+
+Dispatch: a CPU tensor goes to the plain PyTorch version
+(:func:`spmv_dot_ref`, :func:`update_norm_ref`); a CUDA tensor launches
+the kernel or raises.  Each wrapper counts its kernel launches in its
+``launches`` attribute.
+
+Both kernels and both plain versions produce partials over the same
+blocks of :data:`ROWS_PER_BLOCK` rows, shape ``(nrowblk, C)``; the caller
+folds them with ``.sum(0)``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Tuple
+
+import torch
+
+ROWS_PER_BLOCK = 32  # = ROWS_PER_BLOCK in csrc/haydock.cu
+NORB = 9
+_SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use (H100)
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "haydock.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIBRARY = os.path.join(BUILD_DIR, "libhaydock.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+# ----------------------------------------------------------------------
+# plain versions
+def nrowblk(kk: int) -> int:
+    return -(-kk // ROWS_PER_BLOCK)
+
+
+def _block_partials(contrib: torch.Tensor) -> torch.Tensor:
+    """(kk, C) per-row contributions -> (nrowblk, C) block sums."""
+    kk, c = contrib.shape
+    pad = nrowblk(kk) * ROWS_PER_BLOCK - kk
+    if pad:
+        contrib = torch.cat([contrib, contrib.new_zeros(pad, c)])
+    return contrib.view(-1, ROWS_PER_BLOCK, c).sum(1)
+
+
+def block_spmv(hs: torch.Tensor, iz: torch.Tensor, cols: torch.Tensor,
+               psi: torch.Tensor) -> torch.Tensor:
+    """y[i] = sum_m hs[iz[i], m] @ psi[cols[i, m]]  ->  (kk, 9, C).
+
+    Plain gather + einsum, one einsum per type over that type's rows."""
+    cols = cols.long()
+    ntype = hs.shape[0]
+    if ntype == 1:
+        return torch.einsum("mab,imbc->iac", hs[0], psi[cols])
+    kk = cols.shape[0]
+    y = psi.new_empty((kk,) + psi.shape[1:])
+    iz = iz.long()
+    for t in range(ntype):
+        rows = torch.nonzero(iz == t).squeeze(1)
+        y[rows] = torch.einsum("mab,imbc->iac", hs[t], psi[cols[rows]])
+    return y
+
+
+def spmv_dot_ref(hs, iz, cols, psi) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`spmv_dot`."""
+    kk = cols.shape[0]
+    y = block_spmv(hs, iz, cols, psi)
+    p = psi[:kk]
+    contrib = (p.real * y.real + p.imag * y.imag).sum(1)
+    return y, _block_partials(contrib)
+
+
+def update_norm_ref(a, psi, v, pmn) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`update_norm` (returns a new tensor)."""
+    kk = v.shape[0]
+    out = pmn + v - a * psi[:kk]
+    contrib = (out.real ** 2 + out.imag ** 2).sum(1)
+    return out, _block_partials(contrib)
+
+
+# ----------------------------------------------------------------------
+# build and load
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return path
+
+
+def build_library() -> str:
+    """Compile ``csrc/haydock.cu`` into ``_build/libhaydock.so``.
+
+    Returns nvcc's output (``-Xptxas -v``: registers, shared memory and
+    spills per kernel).  The library is written under a temporary name
+    and renamed, so a reader never sees a half-written file."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+        os.replace(tmp, LIBRARY)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return res.stdout + res.stderr
+
+
+def library_is_current() -> bool:
+    return (os.path.exists(LIBRARY)
+            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE))
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    if not library_is_current():
+        build_library()
+    lib = ctypes.CDLL(LIBRARY)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.haydock_spmv_dot.argtypes = [vp, vp, vp, vp, vp, vp,
+                                     ci, ci, ci, ci, vp]
+    lib.haydock_spmv_dot.restype = ci
+    lib.haydock_update_norm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, vp]
+    lib.haydock_update_norm.restype = ci
+    lib.haydock_rows_per_block.argtypes = []
+    lib.haydock_rows_per_block.restype = ci
+    if lib.haydock_rows_per_block() != ROWS_PER_BLOCK:
+        raise RuntimeError("csrc/haydock.cu ROWS_PER_BLOCK differs from "
+                           "haydock_kernels.ROWS_PER_BLOCK")
+    return lib
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type in ("cpu", "cuda"):
+        return t.device.type
+    raise ValueError(f"no Haydock kernel for device {t.device}")
+
+
+# ----------------------------------------------------------------------
+# wrappers
+def spmv_dot(hs, iz, cols, psi) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``y = H psi`` and the per-row-block partials of ``Re<psi|y>``.
+
+    hs (ntype, nslots, 9, 9) complex128, iz (kk,) int32, cols
+    (kk, nslots) int32 with sentinel kk, psi (kk+1, 9, C) complex128 whose
+    row kk is zero.  Returns y (kk, 9, C) complex128 and apart
+    (nrowblk, C) float64; ``apart.sum(0)`` is the chain's Lanczos ``a``.
+    """
+    if _route(psi) == "cpu":
+        return spmv_dot_ref(hs, iz, cols, psi)
+    dev = psi.device
+    ntype, nslots = hs.shape[:2]
+    kk = cols.shape[0]
+    c = psi.shape[2]
+    _check(hs, "hs", torch.complex128, (ntype, nslots, NORB, NORB), dev)
+    _check(iz, "iz", torch.int32, (kk,), dev)
+    _check(cols, "cols", torch.int32, (kk, nslots), dev)
+    _check(psi, "psi", torch.complex128, (kk + 1, NORB, c), dev)
+    if kk == 0 or c == 0:
+        raise ValueError("spmv_dot needs kk > 0 and C > 0")
+    smem = ntype * nslots * NORB * NORB * 16 + min(c, 32) * 8 * 8
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"type table needs {smem} B of shared memory, "
+                         f"over the {_SMEM_LIMIT} B a block may use")
+    y = torch.empty((kk, NORB, c), dtype=torch.complex128, device=dev)
+    apart = torch.empty((nrowblk(kk), c), dtype=torch.float64, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.haydock_spmv_dot(
+            _ptr(hs), _ptr(iz), _ptr(cols), _ptr(psi), _ptr(y),
+            _ptr(apart), ntype, nslots, kk, c, _stream(dev))
+    _raise_on(err, "haydock_spmv_dot")
+    spmv_dot.launches += 1
+    return y, apart
+
+
+spmv_dot.launches = 0
+
+
+def update_norm(a, psi, v, pmn) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pmn' = pmn + v - a psi[:kk]`` and per-row-block partials of
+    ``|pmn'|^2``.
+
+    a (C,) float64, psi (kk+1, 9, C), v and pmn (kk, 9, C) complex128.
+    Returns pmn' (kk, 9, C) and nrm (nrowblk, C) float64; ``nrm.sum(0)``
+    is the chain's next ``b2``.  On CUDA the kernel writes pmn' IN PLACE
+    over ``pmn`` and returns that tensor; the plain version returns a
+    new tensor.
+    """
+    if _route(psi) == "cpu":
+        return update_norm_ref(a, psi, v, pmn)
+    dev = psi.device
+    kk, _, c = v.shape
+    _check(a, "a", torch.float64, (c,), dev)
+    _check(psi, "psi", torch.complex128, (kk + 1, NORB, c), dev)
+    _check(v, "v", torch.complex128, (kk, NORB, c), dev)
+    _check(pmn, "pmn", torch.complex128, (kk, NORB, c), dev)
+    if kk == 0 or c == 0:
+        raise ValueError("update_norm needs kk > 0 and C > 0")
+    nrm = torch.empty((nrowblk(kk), c), dtype=torch.float64, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.haydock_update_norm(
+            _ptr(a), _ptr(psi), _ptr(v), _ptr(pmn), _ptr(pmn), _ptr(nrm),
+            kk, c, _stream(dev))
+    _raise_on(err, "haydock_update_norm")
+    update_norm.launches += 1
+    return pmn, nrm
+
+
+update_norm.launches = 0

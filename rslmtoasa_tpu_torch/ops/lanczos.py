@@ -1,0 +1,122 @@
+"""Batched scalar (Haydock) Lanczos recursion on the block-ELL Hamiltonian.
+
+Port of ``rslmtoasa_tpu/ops/lanczos.py`` (reference ``source/recursion.f90``
+``recur`` :3485, ``crecal`` :3423, ``hop`` :3310) in complex128 PyTorch:
+
+* the per-(atom, orbital) chain loop is the last axis of ``psi``
+  (``C`` chains, ``c = atom * 9 + orbital``);
+* the recursion-depth loop is a Python loop of ``lld - 1`` steps, each
+  one :func:`~.haydock_kernels.spmv_dot` and one
+  :func:`~.haydock_kernels.update_norm` plus the rescale;
+* missing neighbours use the sentinel column ``kk``; ``psi`` carries one
+  extra zero row so gathers need no masking.
+
+Layouts match the JAX package: ``hs (ntype, nslots, 9, 9)``, ``iz (kk,)``,
+``cols (kk, nslots)``, ``psi (kk+1, 9, C)``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import haydock_kernels as hk
+from .haydock_kernels import block_spmv  # noqa: F401  (re-export)
+
+
+class HaydockOperator(nn.Module):
+    """The ELL Hamiltonian of one spin channel as device buffers, so that
+    ``.to(device)`` moves the tables."""
+
+    def __init__(self, hs, iz, cols):
+        super().__init__()
+        self.register_buffer(
+            "hs", torch.as_tensor(np.ascontiguousarray(hs),
+                                  dtype=torch.complex128))
+        self.register_buffer(
+            "iz", torch.as_tensor(np.ascontiguousarray(iz),
+                                  dtype=torch.int32))
+        self.register_buffer(
+            "cols", torch.as_tensor(np.ascontiguousarray(cols),
+                                    dtype=torch.int32))
+
+    @property
+    def kk(self) -> int:
+        return self.cols.shape[0]
+
+    def forward(self, psi: torch.Tensor) -> torch.Tensor:
+        return block_spmv(self.hs, self.iz, self.cols, psi)
+
+    def coefficients(self, psi0: torch.Tensor, lld: int,
+                     plain: bool = False):
+        return lanczos_coefficients(self.hs, self.iz, self.cols, psi0, lld,
+                                    plain=plain)
+
+
+def lanczos_coefficients(
+    hs: torch.Tensor,
+    iz: torch.Tensor,
+    cols: torch.Tensor,
+    psi0: torch.Tensor,
+    lld: int,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run ``lld`` Haydock recursion steps for a batch of start vectors.
+
+    ``psi0`` is (kk+1, 9, C) with unit start vectors in the chain columns
+    (row kk must be zero).  Returns ``(a, b2)`` of shape (lld, C) float64
+    on ``psi0``'s device, with the reference's conventions ``b2[0] = 1``,
+    ``a[lld-1] = 0`` and ``b2[lld-1] = |r|^2`` of the last residual
+    (``crecal`` :3423-3483).  ``a`` and ``b2`` use ``Re<.|.>`` only.
+
+    The kernels are reached through the device dispatch of
+    :mod:`.haydock_kernels`; ``plain=True`` runs the plain versions on any
+    device (the reference a card run is checked against).
+    """
+    spmv_dot = hk.spmv_dot_ref if plain else hk.spmv_dot
+    update_norm = hk.update_norm_ref if plain else hk.update_norm
+    kk1, b, c = psi0.shape
+    kk = kk1 - 1
+    dev = psi0.device
+    psi = psi0.clone()
+    pmn = torch.zeros((kk, b, c), dtype=psi0.dtype, device=dev)
+    summ = torch.ones(c, dtype=torch.float64, device=dev)
+    a = torch.zeros((lld, c), dtype=torch.float64, device=dev)
+    b2 = torch.zeros((lld, c), dtype=torch.float64, device=dev)
+    psi_rows = torch.view_as_real(psi)[:kk]  # (kk, b, c, 2)
+    for ll in range(lld - 1):
+        v, apart = spmv_dot(hs, iz, cols, psi)
+        a_ll = apart.sum(0)
+        a[ll] = a_ll
+        b2[ll] = summ
+        pmn, nrm = update_norm(a_ll, psi, v, pmn)
+        summ = nrm.sum(0)
+        s = torch.sqrt(summ)
+        pmn_new = psi[:kk] * (-s)
+        # psi' = pmn' / s, per real component; row kk stays zero
+        torch.div(torch.view_as_real(pmn), s[:, None], out=psi_rows)
+        pmn = pmn_new
+    b2[lld - 1] = summ
+    return a, b2
+
+
+def scalar_start_vectors(kk: int, atom_indices: Sequence[int],
+                         device: torch.device) -> torch.Tensor:
+    """Unit start vectors for the scalar recursion: one chain per
+    (atom, orbital) pair; orbital runs fastest (matches ``recur``'s l-loop).
+
+    Returns (kk+1, 9, C) complex128 on ``device`` with C = 9 *
+    len(atom_indices), laid out as chain ``c = a * 9 + l`` for atom ``a``,
+    orbital ``l``.
+    """
+    n = len(atom_indices)
+    psi0 = torch.zeros((kk + 1, 9, 9 * n), dtype=torch.complex128,
+                       device=device)
+    rows = torch.as_tensor(np.repeat(np.asarray(atom_indices), 9),
+                           device=device)
+    orb = torch.arange(9, device=device).repeat(n)
+    psi0[rows, orb, torch.arange(9 * n, device=device)] = 1.0
+    return psi0

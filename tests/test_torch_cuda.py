@@ -1,0 +1,92 @@
+"""The Haydock CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``: without a CUDA card every test skips (the check is made
+in the fixture, never at import).  On a machine with one, run
+``python -m pytest tests/test_torch_cuda.py -q``; the kernels are built
+from ``csrc/`` on first use.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rslmtoasa_tpu_torch.models.presets import build_synthetic_bcc
+from rslmtoasa_tpu_torch.ops import haydock_kernels as hk
+from rslmtoasa_tpu_torch.ops.lanczos import (
+    HaydockOperator,
+    lanczos_coefficients,
+    scalar_start_vectors,
+)
+
+pytestmark = pytest.mark.gpu
+BAR = 1e-12
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def system(card):
+    sys_ = build_synthetic_bcc(rc=16.0, ndim=4000, lld=6, device="cpu")
+    ee = sys_.ham.ee
+    return sys_, HaydockOperator(ee[:, :, :9, :9], sys_.ham.iz,
+                                 sys_.ham.cols).to(card)
+
+
+def _psi(kk, c, seed, device):
+    rng = np.random.default_rng(seed)
+    psi = np.zeros((kk + 1, 9, c), np.complex128)
+    psi[:kk] = rng.standard_normal((kk, 9, c)) + 1j * rng.standard_normal(
+        (kk, 9, c))
+    return torch.from_numpy(psi).to(device)
+
+
+@pytest.mark.parametrize("c", [9, 40])
+def test_spmv_dot_kernel_matches_plain(system, card, c):
+    _, op = system
+    psi = _psi(op.kk, c, 1, card)
+    n = hk.spmv_dot.launches
+    y, apart = hk.spmv_dot(op.hs, op.iz, op.cols, psi)
+    assert hk.spmv_dot.launches == n + 1
+    y0, apart0 = hk.spmv_dot_ref(op.hs, op.iz, op.cols, psi)
+    torch.cuda.synchronize()
+    assert (y - y0).abs().max() <= BAR * y0.abs().max()
+    assert (apart - apart0).abs().max() <= BAR * apart0.abs().max()
+    y1, apart1 = hk.spmv_dot(op.hs, op.iz, op.cols, psi)
+    assert torch.equal(y, y1) and torch.equal(apart, apart1)  # no atomics
+
+
+@pytest.mark.parametrize("c", [9, 40])
+def test_update_norm_kernel_matches_plain(system, card, c):
+    _, op = system
+    kk = op.kk
+    psi = _psi(kk, c, 2, card)
+    v = _psi(kk, c, 3, card)[:kk]
+    pmn = _psi(kk, c, 4, card)[:kk].contiguous()
+    a = torch.linspace(-1.0, 1.0, c, dtype=torch.float64, device=card)
+    out0, nrm0 = hk.update_norm_ref(a, psi, v, pmn)
+    n = hk.update_norm.launches
+    out, nrm = hk.update_norm(a, psi, v, pmn)
+    assert hk.update_norm.launches == n + 1
+    assert out.data_ptr() == pmn.data_ptr()  # written in place
+    torch.cuda.synchronize()
+    assert (out - out0).abs().max() <= BAR * out0.abs().max()
+    assert (nrm - nrm0).abs().max() <= BAR * nrm0.abs().max()
+
+
+def test_recursion_kernels_match_plain(system, card):
+    _, op = system
+    lld = 6
+    psi0 = scalar_start_vectors(op.kk, [0, 3, 7], card)
+    n1, n3 = hk.spmv_dot.launches, hk.update_norm.launches
+    a, b2 = lanczos_coefficients(op.hs, op.iz, op.cols, psi0, lld)
+    assert hk.spmv_dot.launches - n1 == lld - 1
+    assert hk.update_norm.launches - n3 == lld - 1
+    a0, b20 = lanczos_coefficients(op.hs, op.iz, op.cols, psi0, lld,
+                                   plain=True)
+    assert (a - a0).abs().max() <= 1e-11
+    assert (b2 - b20).abs().max() <= 1e-11

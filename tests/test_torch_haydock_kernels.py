@@ -1,0 +1,221 @@
+"""The Haydock kernels' plain versions and the port's recursion against the
+JAX package's Pallas kernels (interpret mode) and complex128 recursion.
+
+The Pallas kernels work on the realified flat-stencil layout in df64
+pairs; the inputs here are complex128 on the ELL layout, mapped to the
+flat layout through ``fs.planes``/``fs.cols`` as in
+``tests/test_pallas_conv.py``.  Pallas df64 lands about 1e-13 from
+complex128, so the bar is that test's own: 1e-12 of the output's scale.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from rslmtoasa_tpu.models.presets import build_synthetic_bcc
+from rslmtoasa_tpu.ops import lanczos as jl
+from rslmtoasa_tpu.ops import pallas_conv as pc
+from rslmtoasa_tpu.ops.stencil_conv import build_conv_stencil
+from rslmtoasa_tpu_torch.convert import system_from_numpy, system_to_numpy
+from rslmtoasa_tpu_torch.ops import haydock_kernels as hk
+from rslmtoasa_tpu_torch.ops.lanczos import (
+    HaydockOperator,
+    lanczos_coefficients,
+    scalar_start_vectors,
+)
+
+CPU = torch.device("cpu")
+BAR = 1e-12
+
+
+@pytest.fixture(scope="module")
+def small_system():
+    js = build_synthetic_bcc(rc=16.0, ndim=4000, lld=6)
+    st = build_conv_stencil(js.cluster)
+    fs = pc.build_flat_stencil(st)
+    hs_split = np.asarray(jl.split_complex(js.ham.ee[0, :, :9, :9]))
+    ts = system_from_numpy(*system_to_numpy(js), CPU)
+    op = HaydockOperator(ts.ham.ee[:, :, :9, :9], ts.ham.iz, ts.ham.cols)
+    return js, st, fs, hs_split, op
+
+
+def _complex(rng, shape):
+    return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+
+def _to_flat(x, fs):
+    """(kk, 9, C) complex -> df64 pair of (C, nxp, 18, roww) float32."""
+    flat = np.zeros((x.shape[2], fs.nxp, 18, fs.roww))
+    flat[:, fs.planes, :9, fs.cols] = np.moveaxis(x.real, 2, 1)
+    flat[:, fs.planes, 9:, fs.cols] = np.moveaxis(x.imag, 2, 1)
+    hi = flat.astype(np.float32)
+    lo = (flat - hi).astype(np.float32)
+    return jnp.asarray(hi), jnp.asarray(lo)
+
+
+def _from_flat(hi, lo, fs):
+    """df64 pair of (C, nxp, 18, roww) -> (kk, 9, C) complex128."""
+    v = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
+    g = v[:, fs.planes, :, fs.cols]  # (kk, C, 18)
+    return np.moveaxis(g[..., :9] + 1j * g[..., 9:], 1, 2)
+
+
+def _block_sums(contrib):
+    kk = contrib.shape[0]
+    out = np.zeros((hk.nrowblk(kk), contrib.shape[1]))
+    for blk in range(out.shape[0]):
+        out[blk] = contrib[blk * hk.ROWS_PER_BLOCK:
+                           (blk + 1) * hk.ROWS_PER_BLOCK].sum(0)
+    return out
+
+
+def test_spmv_dot_ref_matches_pallas(small_system):
+    js, st, fs, hs_split, op = small_system
+    kk, c = op.kk, 4
+    rng = np.random.default_rng(3)
+    psi = np.zeros((kk + 1, 9, c), np.complex128)
+    psi[:kk] = _complex(rng, (kk, 9, c))
+    # Entries below one on a 2^-6 grid.  The Pallas kernel's df64 chunk
+    # grid is built for entries below one (the recursion's unit chains);
+    # with full-mantissa entries its float32 sums of bf16 chunk products
+    # round at about 1.6e-12 of max|y| (seen with float32-exact random
+    # entries), which would measure the df64 engine and not the port.
+    # On this grid those sums are exact.
+    psi = np.round(psi / (1.25 * np.abs(psi).max()) * 64) / 64
+    wt, hsc, dxs, colshifts = pc.pack_flat_kernel(hs_split, st)
+    vh, vl, aph, apl = pc.conv_spmv_df64_pallas(
+        wt, jnp.asarray(fs.mask), _to_flat(psi[:kk], fs), hsc, nchunks=7,
+        d=18, dxs=dxs, colshifts=colshifts, interpret=True)
+    y_ref = _from_flat(vh, vl, fs)
+    a_ref = (np.asarray(aph, np.float64)
+             + np.asarray(apl, np.float64)).sum(axis=(1, 2, 3))
+
+    y, apart = hk.spmv_dot(op.hs, op.iz, op.cols, torch.from_numpy(psi))
+    y, apart = y.numpy(), apart.numpy()
+    assert y.shape == (kk, 9, c) and apart.shape == (hk.nrowblk(kk), c)
+    assert np.abs(y - y_ref).max() <= BAR * np.abs(y_ref).max()
+    a = apart.sum(0)
+    assert np.abs(a - a_ref).max() <= BAR * max(1.0, np.abs(a_ref).max())
+    # the partials are Re<psi|y> summed over blocks of ROWS_PER_BLOCK rows
+    contrib = (psi[:kk].conj() * y).real.sum(1)
+    assert np.abs(apart - _block_sums(contrib)).max() <= 1e-13 * max(
+        1.0, np.abs(apart).max())
+
+
+def test_update_norm_ref_matches_pallas(small_system):
+    js, st, fs, hs_split, op = small_system
+    kk, c = op.kk, 4
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal(c)
+    psi = np.zeros((kk + 1, 9, c), np.complex128)
+    psi[:kk] = _complex(rng, (kk, 9, c))
+    v = _complex(rng, (kk, 9, c))
+    pmn = _complex(rng, (kk, 9, c))
+    a_hi = a.astype(np.float32)
+    a_ds = (jnp.asarray(a_hi), jnp.asarray((a - a_hi).astype(np.float32)))
+    oh, ol, nh, nl = pc.lanczos_update_pallas(
+        a_ds, _to_flat(psi[:kk], fs), _to_flat(v, fs), _to_flat(pmn, fs),
+        d=18, interpret=True)
+    out_ref = _from_flat(oh, ol, fs)
+    nrm_ref = (np.asarray(nh, np.float64)
+               + np.asarray(nl, np.float64)).sum(axis=(1, 2, 3))
+
+    out, nrm = hk.update_norm(torch.from_numpy(a), torch.from_numpy(psi),
+                              torch.from_numpy(v), torch.from_numpy(pmn))
+    out, nrm = out.numpy(), nrm.numpy()
+    assert out.shape == (kk, 9, c) and nrm.shape == (hk.nrowblk(kk), c)
+    assert np.abs(out - out_ref).max() <= BAR * np.abs(out_ref).max()
+    assert np.abs(nrm.sum(0) - nrm_ref).max() <= BAR * np.abs(nrm_ref).max()
+    contrib = (np.abs(out) ** 2).sum(1)
+    assert np.abs(nrm - _block_sums(contrib)).max() <= 1e-13 * np.abs(
+        nrm).max()
+
+
+def _start(js, atoms):
+    return jl.scalar_start_vectors(js.cluster.kk, atoms)
+
+
+def test_lanczos_matches_complex128(small_system):
+    """The port's recursion (plain versions on the CPU) vs the JAX
+    complex128 recursion: same algorithm in another summation order."""
+    js, st, fs, hs_split, op = small_system
+    lld = 6
+    psi0 = _start(js, [0, 3])
+    blk = js.ham.ee[:, :, :9, :9]
+    a_ref, b_ref = jl.lanczos_coefficients(
+        jnp.asarray(blk), jnp.asarray(js.ham.iz), jnp.asarray(js.ham.cols),
+        jnp.asarray(psi0), lld)
+    p0 = scalar_start_vectors(op.kk, [0, 3], CPU)
+    assert np.array_equal(p0.numpy(), psi0)
+    a, b2 = lanczos_coefficients(op.hs, op.iz, op.cols, p0, lld)
+    assert a.shape == (lld, 18) and a.dtype == torch.float64
+    assert np.abs(a.numpy() - np.asarray(a_ref)).max() <= 1e-12
+    assert np.abs(b2.numpy() - np.asarray(b_ref)).max() <= 1e-12
+    assert b2[0].eq(1.0).all() and a[-1].eq(0.0).all()
+
+
+def test_lanczos_matches_flat_df64(small_system):
+    """The port's recursion vs the recursion through both Pallas kernels
+    (the accelerator path of ``BulkSystem.run_lanczos``)."""
+    js, st, fs, hs_split, op = small_system
+    lld = 6
+    wt, hsc, dxs, colshifts = pc.pack_flat_kernel(hs_split, st)
+    p0 = pc.flat_start_vectors(fs, [0, 3], 18, orbitals=range(9))
+    a_ref, b_ref = pc.lanczos_coefficients_flat_df64(
+        wt, hsc, fs.mask, p0, lld, dxs=dxs, colshifts=colshifts,
+        interpret=True, roll=False)
+    a, b2 = op.coefficients(scalar_start_vectors(op.kk, [0, 3], CPU), lld)
+    assert np.abs(a.numpy() - a_ref).max() <= 1e-11
+    assert np.abs(b2.numpy() - b_ref).max() <= 1e-11
+
+
+def test_cpu_dispatch_runs_plain_versions(small_system):
+    """A CPU tensor goes to the plain version: no launch is counted, and
+    the result equals the plain version's bit for bit."""
+    js, st, fs, hs_split, op = small_system
+    rng = np.random.default_rng(7)
+    psi = torch.zeros((op.kk + 1, 9, 3), dtype=torch.complex128)
+    psi[:op.kk] = torch.from_numpy(_complex(rng, (op.kk, 9, 3)))
+    n1, n3 = hk.spmv_dot.launches, hk.update_norm.launches
+    y, apart = hk.spmv_dot(op.hs, op.iz, op.cols, psi)
+    y0, apart0 = hk.spmv_dot_ref(op.hs, op.iz, op.cols, psi)
+    assert torch.equal(y, y0) and torch.equal(apart, apart0)
+    a = apart.sum(0)
+    pmn = torch.zeros_like(y)
+    out, nrm = hk.update_norm(a, psi, y, pmn)
+    out0, nrm0 = hk.update_norm_ref(a, psi, y, pmn)
+    assert torch.equal(out, out0) and torch.equal(nrm, nrm0)
+    assert (hk.spmv_dot.launches, hk.update_norm.launches) == (n1, n3)
+
+
+def test_other_devices_raise(small_system):
+    """Neither CPU nor CUDA: no plain fallback, the wrapper raises."""
+    js, st, fs, hs_split, op = small_system
+    meta = torch.empty((op.kk + 1, 9, 2), dtype=torch.complex128,
+                       device="meta")
+    with pytest.raises(ValueError, match="no Haydock kernel"):
+        hk.spmv_dot(op.hs, op.iz, op.cols, meta)
+    with pytest.raises(ValueError, match="no Haydock kernel"):
+        hk.update_norm(torch.empty(2, device="meta"), meta, meta[:-1],
+                       meta[:-1])
+
+
+def test_block_spmv_multi_type_matches_jax():
+    """The plain SpMV's per-type branch (a two-type B2 cluster)."""
+    from rslmtoasa_tpu.models.presets import build_synthetic_b2
+
+    js = build_synthetic_b2(rc=9.0, nsp=1)
+    hb = js.ham
+    assert hb.ee.shape[0] == 2
+    rng = np.random.default_rng(11)
+    kk = hb.cols.shape[0]
+    psi = np.zeros((kk + 1, 9, 5), np.complex128)
+    psi[:kk] = _complex(rng, (kk, 9, 5))
+    blk = hb.ee[:, :, 9:, 9:]
+    y_ref = np.asarray(jl.block_spmv(jnp.asarray(blk), jnp.asarray(hb.iz),
+                                     jnp.asarray(hb.cols), jnp.asarray(psi)))
+    op = HaydockOperator(blk, hb.iz, hb.cols)
+    y = op(torch.from_numpy(psi)).numpy()
+    assert np.abs(y - y_ref).max() <= 1e-13 * np.abs(y_ref).max()

@@ -1,0 +1,72 @@
+"""The port never imports JAX, and never runs on another device than the
+one asked for.
+
+The import check runs in a subprocess: this test session imports JAX in
+``tests/conftest.py``.
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+PROBE = r"""
+import importlib, pkgutil, sys
+import numpy as np
+import torch
+import rslmtoasa_tpu_torch as pkg
+
+names = [m.name for m in
+         pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+
+from rslmtoasa_tpu_torch.ops.lanczos import (
+    HaydockOperator, scalar_start_vectors)
+
+rng = np.random.default_rng(0)
+kk, nslots = 6, 3
+hs = rng.standard_normal((1, nslots, 9, 9)) + 1j * rng.standard_normal(
+    (1, nslots, 9, 9))
+hs = hs + hs.conj().transpose(0, 1, 3, 2)
+cols = np.stack([np.arange(kk), (np.arange(kk) + 1) % kk,
+                 np.full(kk, kk)], axis=1)
+op = HaydockOperator(hs, np.zeros(kk), cols)
+a, b2 = op.coefficients(scalar_start_vectors(kk, [0], torch.device("cpu")),
+                        4)
+assert a.shape == (4, 9) and bool(torch.isfinite(b2).all())
+print(len(names), "jax" in sys.modules)
+"""
+
+
+def test_port_never_imports_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    nmods, has_jax = res.stdout.split()
+    assert int(nmods) >= 25
+    assert has_jax == "False"
+
+
+def test_cuda_without_a_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from rslmtoasa_tpu_torch import resolve_device
+    from rslmtoasa_tpu_torch.cli import main
+    from rslmtoasa_tpu_torch.models.presets import build_synthetic_bcc
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_synthetic_bcc(rc=4.0, ndim=200, lld=4, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([str(tmp_path / "input.nml")])  # the default device is cuda
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+    assert resolve_device("cpu") == torch.device("cpu")
