@@ -7,26 +7,37 @@ code is then non-zero):
 
 0. card: name, torch and CUDA versions, nvidia-smi's name and power limit;
 1. build: ``libhaydock.so`` from ``rslmtoasa_tpu_torch/csrc`` with nvcc
-   (time and the ``-Xptxas -v`` lines), and the native atomic-sphere
-   solver with g++;
-2. kernels vs plain: both Haydock kernels against their plain PyTorch
-   versions on the card, at the bench shape (bcc box 30, kk = 27000,
-   15 slots) for C = 9 chains (one SCF spin channel) and C = 144 (16 start
-   atoms), totals and row-block partials within 1e-12 of the output's
-   scale; then CUDA-event times, plain and kernel in turns;
+   (time and the ``-Xptxas -v`` lines of all three kernels), and the
+   native atomic-sphere solver with g++;
+2. kernels vs plain: the three Haydock kernels against their plain
+   PyTorch versions on the card, at the bench shape (bcc box 30,
+   kk = 27000, 15 slots) for C = 9 chains (one SCF spin channel) and
+   C = 144 (16 start atoms), totals and row-block partials within 1e-12
+   of the output's scale; K2' ``spmv_dot_pipelined`` also against K1'
+   ``spmv_dot`` (y bit-equal, a within 1e-13 of the folded partials);
+   then CUDA-event times, plain and kernel in turns, and the time of one
+   library call computing the SpMV (``torch.sparse.mm`` of H as a
+   complex128 CSR matrix, which leaves out the dot);
 3. recursion: ``lanczos_coefficients`` through the kernels vs the plain
-   versions on the card, C = 144, lld = 20: a and b2 within 1e-11;
+   versions on the card, C = 144, lld = 20, for both engines (K1' and
+   ``roll=True``, K2'): a and b2 within 1e-11;
 4. main path: a 2-iteration bulk SCF on the box-30 preset with
-   ``device='cuda'`` against the same with ``device='cpu'`` (plain
-   versions): etot within 1e-9, fermi, ql and mom within 1e-10, and each
-   kernel launched nstep * 2 spins * (lld - 1) times; with the wall per
-   iteration and its split over the SCF's timer sections.
+   ``device='cuda'``, once on the default engine and once with
+   ``RSLMTO_ROLL=1`` (K2'), against the same with ``device='cpu'``
+   (plain versions): etot within 1e-9, fermi, ql and mom within 1e-10,
+   and each kernel of the engine launched nstep * 2 spins * (lld - 1)
+   times and the other SpMV kernel never; with the wall per iteration
+   and its split over the SCF's timer sections;
+5. bench: ``rslmtoasa_tpu_torch.bench.main(n_start=1)`` (C = 9) in this
+   process; its JSON line parses and its host guard passed.
 
 The last two lines are the kernels' JSON record and the result line.
 Without a CUDA card, or without the repository beside it, it exits
 non-zero and prints no result.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -41,8 +52,14 @@ PRESET = dict(rc=120.0, ndim=1_000_000, lld=20, box=30)
 NSTEP = 2
 SOURCE = "rslmtoasa_tpu_torch/csrc/haydock.cu"
 REPLACES = {"spmv_dot": "rslmtoasa_tpu/ops/pallas_conv.py:185",
+            "spmv_dot_pipelined": "rslmtoasa_tpu/ops/pallas_conv.py:352",
             "update_norm": "rslmtoasa_tpu/ops/pallas_conv.py:551"}
 ITERS = 20
+# H100 SXM peaks (NVIDIA data sheet, at 700 W): FP64 on the tensor cores,
+# FP64 on the vector units, HBM3 bandwidth
+FP64_TENSOR_FLOPS = 67e12
+FP64_VECTOR_FLOPS = 34e12
+HBM_BYTES_S = 3.35e12
 
 
 def say(phase, msg):
@@ -103,11 +120,35 @@ def rel_err(got, want):
     return float((got - want).abs().max()), scale
 
 
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def csr_operator(op):
+    """H of ``op`` as one complex128 CSR matrix (9 kk, 9 (kk + 1)), the
+    library call's operand; columns sorted within each row."""
+    cols = op.cols.long()
+    kk, nslots = cols.shape
+    dev = cols.device
+    order = cols.argsort(dim=1)
+    cs = cols.gather(1, order)
+    vals = op.hs[op.iz.long()]  # (kk, nslots, 9, 9): [i, m, a, b]
+    vals = vals[torch.arange(kk, device=dev)[:, None], order]
+    vals = vals.permute(0, 2, 1, 3).reshape(-1)  # row (i, a); (m, b)
+    colidx = (9 * cs[:, None, :, None]
+              + torch.arange(9, device=dev)).expand(kk, 9, nslots, 9)
+    crow = torch.arange(9 * kk + 1, device=dev) * (9 * nslots)
+    return torch.sparse_csr_tensor(crow, colidx.reshape(-1), vals,
+                                   size=(9 * kk, 9 * (kk + 1)))
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from rslmtoasa_tpu_torch import bench as port_bench
     from rslmtoasa_tpu_torch import native
     from rslmtoasa_tpu_torch.models.presets import build_synthetic_bcc
     from rslmtoasa_tpu_torch.models.scf import SelfConsistency
@@ -122,6 +163,9 @@ def main():
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    wrappers = {"spmv_dot": hk.spmv_dot,
+                "spmv_dot_pipelined": hk.spmv_dot_pipelined,
+                "update_norm": hk.update_norm}
 
     # 0. card --------------------------------------------------------
     smi = subprocess.run(
@@ -139,9 +183,10 @@ def main():
     say(1, f"built {os.path.relpath(hk.LIBRARY)} in "
            f"{time.perf_counter() - t0:.1f} s")
     for line in log.splitlines():
-        if "ptxas" in line and ("registers" in line or "spill" in line
-                                or "Compiling" in line):
+        if "spill" in line or ("ptxas" in line and (
+                "registers" in line or "Compiling" in line)):
             print("   ", line.strip(), flush=True)
+    check("spmv_dot_pipelined_kernel" in log, "ptxas reports K2'")
     t0 = time.perf_counter()
     native.get_lib()
     say(1, f"built {os.path.relpath(native.LIBRARY)} in "
@@ -153,9 +198,13 @@ def main():
     hb = bench.ham
     kk = bench.cluster.kk
     op = HaydockOperator(hb.ee[:, :, :9, :9], hb.iz, hb.cols).to(dev)
-    say(2, f"preset box {PRESET['box']}: kk={kk}, nslots={hb.cols.shape[1]}"
+    nslots = hb.cols.shape[1]
+    say(2, f"preset box {PRESET['box']}: kk={kk}, nslots={nslots}"
            f", built in {time.perf_counter() - t0:.1f} s")
-    check(kk == 27000 and hb.cols.shape[1] == 15, "bench shape")
+    check(kk == 27000 and nslots == 15, "bench shape")
+    csr = csr_operator(op)
+    # occupied (row, slot) blocks: what this run's data needs
+    nblocks = int((op.cols < kk).sum())
     records = {n: {"max_abs_err": 0.0} for n in REPLACES}
     for c in (9, 144):
         psi = random_chains(kk, c, 1, dev)
@@ -164,6 +213,8 @@ def main():
         a = torch.linspace(-1.0, 1.0, c, dtype=torch.float64, device=dev)
         y, ap = hk.spmv_dot(op.hs, op.iz, op.cols, psi)
         y0, ap0 = hk.spmv_dot_ref(op.hs, op.iz, op.cols, psi)
+        y2, a2 = hk.spmv_dot_pipelined(op.hs, op.iz, op.cols, psi)
+        y20, a20 = hk.spmv_dot_pipelined_ref(op.hs, op.iz, op.cols, psi)
         pmn_in = pmn.clone()
         out, nrm = hk.update_norm(a, psi, v, pmn_in)
         out0, nrm0 = hk.update_norm_ref(a, psi, v, pmn)
@@ -171,6 +222,7 @@ def main():
         errs = {}
         for name, pairs in (("spmv_dot", ((y, y0), (ap, ap0),
                                           (ap.sum(0), ap0.sum(0)))),
+                            ("spmv_dot_pipelined", ((y2, y20), (a2, a20))),
                             ("update_norm", ((out, out0), (nrm, nrm0),
                                              (nrm.sum(0), nrm0.sum(0))))):
             for got, want in pairs:
@@ -180,98 +232,183 @@ def main():
                 errs[name] = max(errs.get(name, 0.0), err)
                 records[name]["max_abs_err"] = max(
                     records[name]["max_abs_err"], err)
+        dy = float((y2 - y).abs().max())
+        check(torch.equal(y2, y), f"K2' y equals K1' y at C={c} "
+              f"(max diff {dy})")
+        da, scale = rel_err(a2, ap.sum(0))
+        check(da <= 1e-13 * scale, f"K2' a vs K1' folded partials C={c}: "
+              f"{da} > 1e-13 * {scale}")
         y_buf = pmn.clone()
-        ms_k1, ms_p1 = in_turns(
+        ms = {}
+        ms["spmv_dot"] = in_turns(
             lambda: hk.spmv_dot_ref(op.hs, op.iz, op.cols, psi),
             lambda: hk.spmv_dot(op.hs, op.iz, op.cols, psi))
-        ms_k3, ms_p3 = in_turns(
+        ms["spmv_dot_pipelined"] = in_turns(
+            lambda: hk.spmv_dot_pipelined_ref(op.hs, op.iz, op.cols, psi),
+            lambda: hk.spmv_dot_pipelined(op.hs, op.iz, op.cols, psi))
+        ms["update_norm"] = in_turns(
             lambda: hk.update_norm_ref(a, psi, v, y_buf),
             lambda: hk.update_norm(a, psi, v, y_buf))
+        flat = psi.view(9 * (kk + 1), c)
+        ylib = torch.sparse.mm(csr, flat).view(kk, 9, c)
+        err, scale = rel_err(ylib, y0)
+        check(err <= 1e-12 * scale, f"library SpMV C={c}: {err}")
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, flat))
+        del ylib
+        # bounds from this run's inputs: each input read once, each
+        # output written once; the SpMVs' flops over the occupied blocks
+        spmv_flops = 8 * 81 * nblocks * c
+        spmv_bytes = nbytes(op.hs, op.iz, op.cols, psi, y, ap)
+        upd_bytes = nbytes(a, psi[:kk], v, pmn, out, nrm)
+        bounds = {
+            "spmv_dot": (spmv_flops / FP64_TENSOR_FLOPS,
+                         spmv_bytes / HBM_BYTES_S),
+            # 10 flop per complex element: (q + w) - a p, then |.|^2
+            "update_norm": (10 * kk * 9 * c / FP64_TENSOR_FLOPS,
+                            upd_bytes / HBM_BYTES_S)}
+        bounds["spmv_dot_pipelined"] = bounds["spmv_dot"]
         if c == 9:  # the main path's shape
-            records["spmv_dot"].update(ms=ms_k1, plain_ms=ms_p1)
-            records["update_norm"].update(ms=ms_k3, plain_ms=ms_p3)
-        say(2, f"C={c}: spmv_dot err {errs['spmv_dot']:.3e} kernel "
-               f"{ms_k1:.4f} ms plain {ms_p1:.4f} ms; update_norm err "
-               f"{errs['update_norm']:.3e} kernel {ms_k3:.4f} ms plain "
-               f"{ms_p3:.4f} ms")
-        del psi, v, pmn, pmn_in, y, y0, out, out0, y_buf
+            for name, (t_k, t_p) in ms.items():
+                ops_s, bytes_s = bounds[name]
+                records[name].update(
+                    ms=t_k, plain_ms=t_p, bound_ms=1e3 * max(ops_s, bytes_s),
+                    bound_by="operations" if ops_s >= bytes_s else "bytes",
+                    library_ms=None if name == "update_norm" else lib_ms)
+        say(2, f"C={c}: " + "; ".join(
+            f"{n} err {errs[n]:.3e} kernel {ms[n][0]:.4f} ms plain "
+            f"{ms[n][1]:.4f} ms bound {1e3 * max(bounds[n]):.4f} ms"
+            for n in ms) + f"; K2' vs K1': |dy|={dy:.3e} |da|={da:.3e}")
+        say(2, f"C={c}: library torch.sparse.mm (CSR complex128, no dot): "
+               f"{lib_ms:.4f} ms; SpMV flops {spmv_flops:.4e} -> "
+               f"{1e3 * spmv_flops / FP64_VECTOR_FLOPS:.4f} ms at FP64 "
+               f"vector peak, {1e3 * spmv_flops / FP64_TENSOR_FLOPS:.4f} "
+               f"ms at FP64 tensor peak; update bytes {upd_bytes:.4e}")
+        del psi, v, pmn, pmn_in, y, y0, y2, y20, out, out0, y_buf
         torch.cuda.empty_cache()
+    del csr
+    torch.cuda.empty_cache()
 
     # 3. recursion ---------------------------------------------------
     starts = [i * (kk // 16) for i in range(16)]
     psi0 = scalar_start_vectors(kk, starts, dev)
     lld = PRESET["lld"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    a, b2 = lanczos_coefficients(op.hs, op.iz, op.cols, psi0, lld)
-    torch.cuda.synchronize()
-    t_k = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    a0, b20 = lanczos_coefficients(op.hs, op.iz, op.cols, psi0, lld,
-                                   plain=True)
-    torch.cuda.synchronize()
-    t_p = time.perf_counter() - t0
-    ea = float((a - a0).abs().max())
-    eb = float((b2 - b20).abs().max())
-    check(a.shape == (lld, 144) and bool(torch.isfinite(b2).all()),
-          "recursion shape and finiteness")
-    check(ea <= 1e-11 and eb <= 1e-11, f"recursion a {ea}, b2 {eb}")
-    nnz = kk * hb.cols.shape[1] * 81
-    say(3, f"C=144 lld={lld}: |da|={ea:.3e} |db2|={eb:.3e}; kernels "
-           f"{t_k:.3f} s ({nnz * 144 * (lld - 1) / t_k / 1e9:.2f} Gnnz/s), "
-           f"plain {t_p:.3f} s")
+    nnz = kk * nslots * 81
+    for roll in (False, True):
+        # one untimed run first, so that neither engine pays the caching
+        # allocator's first requests after empty_cache()
+        lanczos_coefficients(op.hs, op.iz, op.cols, psi0, lld, roll=roll)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, b2 = lanczos_coefficients(op.hs, op.iz, op.cols, psi0, lld,
+                                     roll=roll)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        a0, b20 = lanczos_coefficients(op.hs, op.iz, op.cols, psi0, lld,
+                                       plain=True, roll=roll)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+        ea = float((a - a0).abs().max())
+        eb = float((b2 - b20).abs().max())
+        check(a.shape == (lld, 144) and bool(torch.isfinite(b2).all()),
+              "recursion shape and finiteness")
+        check(ea <= 1e-11 and eb <= 1e-11,
+              f"recursion roll={roll}: a {ea}, b2 {eb}")
+        say(3, f"C=144 lld={lld} roll={roll}: |da|={ea:.3e} "
+               f"|db2|={eb:.3e}; kernels {t_k:.3f} s "
+               f"({nnz * 144 * (lld - 1) / t_k / 1e9:.2f} Gnnz/s), "
+               f"plain {t_p:.3f} s")
     del bench, op, psi0
     torch.cuda.empty_cache()
 
     # 4. main path ---------------------------------------------------
     results = {}
-    for device in ("cuda", "cpu"):
-        sys_ = build_synthetic_bcc(device=device, **PRESET)
-        before = section_totals(g_timer)
-        with tempfile.TemporaryDirectory() as work:
-            scf = SelfConsistency(sys_, workdir=work)
-            if device == "cuda":
-                hk.spmv_dot.launches = 0
-                hk.update_norm.launches = 0
-            t0 = time.perf_counter()
-            state = scf.run(nstep=NSTEP)
-            wall = time.perf_counter() - t0
-            if device == "cuda":
-                launches = {"spmv_dot": hk.spmv_dot.launches,
-                            "update_norm": hk.update_norm.launches}
-        pot = sys_.atoms[0].potential
-        results[device] = dict(etot=pot.etot, fermi=scf.fermi,
-                               ql=pot.ql.copy(), mom=np.array(pot.mom))
-        check(state.niter == NSTEP and np.isfinite(pot.etot)
-              and np.isfinite(pot.ql).all(), f"{device} SCF finished")
-        spent = {k: v - before.get(k, 0.0)
-                 for k, v in section_totals(g_timer).items()}
-        rec = spent["recursion-phase/recursion"]
-        say(4, f"SCF device={device} sections (s): " + ", ".join(
-            f"{k} {v:.3f}" for k, v in spent.items() if v > 0.0005))
-        say(4, f"SCF device={device}: {wall / NSTEP:.3f} s per iteration, "
-               f"recursion {100 * rec / wall:.1f}%; "
-               f"etot {float(pot.etot)!r} fermi {float(scf.fermi)!r} "
-               f"delta {state.delta:.3e}")
-    gpu, cpu = results["cuda"], results["cpu"]
-    check(abs(gpu["etot"] - cpu["etot"]) <= 1e-9, "etot within 1e-9")
-    check(abs(gpu["fermi"] - cpu["fermi"]) <= 1e-10, "fermi within 1e-10")
-    check(np.abs(gpu["ql"] - cpu["ql"]).max() <= 1e-10, "ql within 1e-10")
-    check(np.abs(gpu["mom"] - cpu["mom"]).max() <= 1e-10,
-          "mom within 1e-10")
+    launches = {}
+    env_roll = os.environ.pop("RSLMTO_ROLL", None)
+    try:
+        for run, device, roll in (("cuda", "cuda", None),
+                                  ("cuda-roll", "cuda", "1"),
+                                  ("cpu", "cpu", None)):
+            if roll is None:
+                os.environ.pop("RSLMTO_ROLL", None)
+            else:
+                os.environ["RSLMTO_ROLL"] = roll
+            sys_ = build_synthetic_bcc(device=device, **PRESET)
+            before = section_totals(g_timer)
+            with tempfile.TemporaryDirectory() as work:
+                scf = SelfConsistency(sys_, workdir=work)
+                for fn in wrappers.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                state = scf.run(nstep=NSTEP)
+                wall = time.perf_counter() - t0
+                launches[run] = {n: fn.launches
+                                 for n, fn in wrappers.items()}
+            pot = sys_.atoms[0].potential
+            results[run] = dict(etot=pot.etot, fermi=scf.fermi,
+                                ql=pot.ql.copy(), mom=np.array(pot.mom))
+            check(state.niter == NSTEP and np.isfinite(pot.etot)
+                  and np.isfinite(pot.ql).all(), f"{run} SCF finished")
+            spent = {k: v - before.get(k, 0.0)
+                     for k, v in section_totals(g_timer).items()}
+            rec = spent["recursion-phase/recursion"]
+            say(4, f"SCF {run} sections (s): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in spent.items() if v > 0.0005))
+            say(4, f"SCF {run}: {wall / NSTEP:.3f} s per iteration, "
+                   f"recursion {100 * rec / wall:.1f}%; "
+                   f"etot {float(pot.etot)!r} fermi {float(scf.fermi)!r} "
+                   f"delta {state.delta:.3e}")
+    finally:
+        if env_roll is None:
+            os.environ.pop("RSLMTO_ROLL", None)
+        else:
+            os.environ["RSLMTO_ROLL"] = env_roll
+    cpu = results["cpu"]
     want = NSTEP * 2 * (PRESET["lld"] - 1)
-    for name, n in launches.items():
-        check(n == want, f"{name} launched {n} times, want {want}")
-        records[name]["launches"] = n
-    say(4, f"cuda vs cpu: |detot|={abs(gpu['etot'] - cpu['etot']):.3e} "
-           f"|dfermi|={abs(gpu['fermi'] - cpu['fermi']):.3e}; launches "
-           f"{launches}")
+    expect = {"cuda": {"spmv_dot": want, "spmv_dot_pipelined": 0,
+                       "update_norm": want},
+              "cuda-roll": {"spmv_dot": 0, "spmv_dot_pipelined": want,
+                            "update_norm": want}}
+    for run in ("cuda", "cuda-roll"):
+        gpu = results[run]
+        check(abs(gpu["etot"] - cpu["etot"]) <= 1e-9,
+              f"{run} etot within 1e-9")
+        check(abs(gpu["fermi"] - cpu["fermi"]) <= 1e-10,
+              f"{run} fermi within 1e-10")
+        check(np.abs(gpu["ql"] - cpu["ql"]).max() <= 1e-10,
+              f"{run} ql within 1e-10")
+        check(np.abs(gpu["mom"] - cpu["mom"]).max() <= 1e-10,
+              f"{run} mom within 1e-10")
+        check(launches[run] == expect[run],
+              f"{run} launches {launches[run]}, want {expect[run]}")
+        say(4, f"{run} vs cpu: |detot|={abs(gpu['etot'] - cpu['etot']):.3e}"
+               f" |dfermi|={abs(gpu['fermi'] - cpu['fermi']):.3e}; "
+               f"launches {launches[run]}")
+    for name in records:
+        path = "cuda-roll" if name == "spmv_dot_pipelined" else "cuda"
+        records[name]["launches"] = launches[path][name]
+
+    # 5. bench -------------------------------------------------------
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        line = port_bench.main(n_start=1)
+    printed = buf.getvalue().strip().splitlines()
+    check(len(printed) == 1 and json.loads(printed[0]) == line,
+          "bench prints one JSON line")
+    check(line["guard_max_abs_err"] <= port_bench.GUARD_ATOL
+          and line["value"] > 0, "bench host guard")
+    print(f"[5] {printed[0]}", flush=True)
+    say(5, f"bench at C=9 in {time.perf_counter() - t0:.1f} s")
     check("jax" not in sys.modules, "no JAX imported")
 
     kernels = [dict(name=n, route="cuda", source=SOURCE, replaces=REPLACES[n],
                     launches=r["launches"], max_abs_err=r["max_abs_err"],
-                    ms=r["ms"], plain_ms=r["plain_ms"])
+                    ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=r["library_ms"])
                for n, r in records.items()]
+    say(6, f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -43,12 +43,18 @@ class BulkSystem:
     sbarvecs: Optional[list] = None
     ham: Optional[HamiltonianBlocks] = None
     emesh: Optional[EnergyMesh] = None
-    device: torch.device = torch.device("cpu")
+    # None means the card: resolve_device("cuda") raises without one;
+    # a caller that wants the CPU passes it
+    device: Optional[torch.device] = None
+
+    def __post_init__(self):
+        self.device = resolve_device(
+            "cuda" if self.device is None else self.device)
 
     @classmethod
     def build(cls, cfg: JobConfig, workdir: str = ".",
               device="cuda") -> "BulkSystem":
-        sys = cls(cfg=cfg, workdir=workdir, device=resolve_device(device))
+        sys = cls(cfg=cfg, workdir=workdir, device=device)
         lat = cfg.lattice
         pre = (cfg.calculation.pre_processing or "").strip()
         if cfg.control.calctype != "B" or pre == "newclusurf":

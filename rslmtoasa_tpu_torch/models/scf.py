@@ -18,6 +18,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..ops.lanczos import roll_selected
 from ..physics.bands import Bands
 from ..physics.energy_mesh import EnergyMesh
 from ..physics.madelung import MadelungMatrix, bulkpot
@@ -151,6 +152,10 @@ class SelfConsistency:
         cfg = self.cfg
         sys = self.sys
         nstep = cfg.scf.nstep if nstep is None else nstep
+        spmv = ("K2' spmv_dot_pipelined" if roll_selected()
+                else "K1' spmv_dot")
+        g_logger.info(f"scalar recursion on {sys.device}: {spmv} + "
+                      "K3' update_norm")
         for it in range(1, nstep + 1):
             g_logger.info(f"SCF iteration {it}/{nstep}")
             with g_timer.section("recursion-phase"):

@@ -1,10 +1,10 @@
 """ctypes bindings for the native (C++) atomic-sphere solver.
 
-The source is the JAX package's ``rslmtoasa_tpu/native/radial.cpp``, read
-by path (the two packages sit side by side, in a checkout and when
-installed).  It is built with g++ on first use, on the machine that runs
-it, into this package's ``_build/libradial.so``; nothing is written
-beside the source.  The port has no Python atomic-sphere solver yet, so a
+The source is this package's own ``csrc/radial.cpp`` (a byte-for-byte
+copy of the JAX package's ``native/radial.cpp``; a test holds the two
+equal).  It is built with g++ on first use, on the machine that runs it,
+into this package's ``_build/libradial.so``; nothing is written beside
+the source.  The port has no Python atomic-sphere solver yet, so a
 failed build raises.
 """
 
@@ -20,8 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(os.path.dirname(_PKG), "rslmtoasa_tpu", "native",
-                      "radial.cpp")
+SOURCE = os.path.join(_PKG, "csrc", "radial.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIBRARY = os.path.join(BUILD_DIR, "libradial.so")
 

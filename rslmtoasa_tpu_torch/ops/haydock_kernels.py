@@ -1,11 +1,19 @@
-"""The Haydock recursion's two device kernels, their plain versions and
+"""The Haydock recursion's three device kernels, their plain versions and
 their build.
 
-* :func:`spmv_dot` -- ``y = H psi`` on the ELL/BSR layout plus the
+* :func:`spmv_dot` (K1') -- ``y = H psi`` on the ELL/BSR layout plus the
   per-row-block partials of ``Re<psi|y>`` that give the Lanczos ``a``.
   Replaces ``rslmtoasa_tpu/ops/pallas_conv.py`` ``_spmv_kernel`` (via
   ``conv_spmv_df64_pallas``).
-* :func:`update_norm` -- ``pmn' = pmn + v - a psi`` plus the
+* :func:`spmv_dot_pipelined` (K2') -- the same ``y``, with the gathered
+  rows of ``psi`` streamed through a 3-stage ring of ``cp.async`` copies
+  in shared memory (two slots in flight per thread while one is
+  multiplied), and the finished per-chain ``a``: the last row block to
+  finish adds the blocks' partials in index order.  Its ``y`` equals
+  that of K1' bit for bit.  Replaces ``pallas_conv.py``
+  ``_spmv_kernel_roll`` (via ``conv_spmv_df64_pallas_roll``), whose dot
+  also leaves the kernel summed over the whole cluster.
+* :func:`update_norm` (K3') -- ``pmn' = pmn + v - a psi`` plus the
   per-row-block partials of ``|pmn'|^2`` that give ``b2``.  Replaces
   ``pallas_conv.py`` ``_update_kernel`` (via ``lanczos_update_pallas``).
 
@@ -14,13 +22,13 @@ loaded with ctypes).  The library is built with nvcc into ``_build/`` at
 first use, and again whenever the source is newer than the library.
 
 Dispatch: a CPU tensor goes to the plain PyTorch version
-(:func:`spmv_dot_ref`, :func:`update_norm_ref`); a CUDA tensor launches
-the kernel or raises.  Each wrapper counts its kernel launches in its
-``launches`` attribute.
+(:func:`spmv_dot_ref`, :func:`spmv_dot_pipelined_ref`,
+:func:`update_norm_ref`); a CUDA tensor launches the kernel or raises.
+Each wrapper counts its kernel launches in its ``launches`` attribute.
 
-Both kernels and both plain versions produce partials over the same
+K1' and K3' (kernels and plain versions) produce partials over the same
 blocks of :data:`ROWS_PER_BLOCK` rows, shape ``(nrowblk, C)``; the caller
-folds them with ``.sum(0)``.
+folds them with ``.sum(0)``.  K2' returns the folded ``(C,)`` sum.
 """
 
 from __future__ import annotations
@@ -80,13 +88,25 @@ def block_spmv(hs: torch.Tensor, iz: torch.Tensor, cols: torch.Tensor,
     return y
 
 
-def spmv_dot_ref(hs, iz, cols, psi) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`spmv_dot`."""
+def _spmv_contrib(hs, iz, cols, psi) -> Tuple[torch.Tensor, torch.Tensor]:
+    """y = H psi and the per-row contributions (kk, C) to Re<psi|y>."""
     kk = cols.shape[0]
     y = block_spmv(hs, iz, cols, psi)
     p = psi[:kk]
-    contrib = (p.real * y.real + p.imag * y.imag).sum(1)
+    return y, (p.real * y.real + p.imag * y.imag).sum(1)
+
+
+def spmv_dot_ref(hs, iz, cols, psi) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`spmv_dot`."""
+    y, contrib = _spmv_contrib(hs, iz, cols, psi)
     return y, _block_partials(contrib)
+
+
+def spmv_dot_pipelined_ref(hs, iz, cols,
+                           psi) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`spmv_dot_pipelined`."""
+    y, contrib = _spmv_contrib(hs, iz, cols, psi)
+    return y, contrib.sum(0)
 
 
 def update_norm_ref(a, psi, v, pmn) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -146,6 +166,11 @@ def _library() -> ctypes.CDLL:
     lib.haydock_spmv_dot.argtypes = [vp, vp, vp, vp, vp, vp,
                                      ci, ci, ci, ci, vp]
     lib.haydock_spmv_dot.restype = ci
+    lib.haydock_spmv_dot_pipelined.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                               vp, ci, ci, ci, ci, vp]
+    lib.haydock_spmv_dot_pipelined.restype = ci
+    lib.haydock_spmv_dot_pipelined_smem.argtypes = [ci, ci, ci]
+    lib.haydock_spmv_dot_pipelined_smem.restype = ctypes.c_longlong
     lib.haydock_update_norm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, vp]
     lib.haydock_update_norm.restype = ci
     lib.haydock_rows_per_block.argtypes = []
@@ -163,6 +188,22 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
             f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
+
+
+def _spmv_shape(hs, iz, cols, psi, what: str):
+    """Checks the SpMV kernels' inputs; returns (device, ntype, nslots,
+    kk, C)."""
+    dev = psi.device
+    ntype, nslots = hs.shape[:2]
+    kk = cols.shape[0]
+    c = psi.shape[2]
+    _check(hs, "hs", torch.complex128, (ntype, nslots, NORB, NORB), dev)
+    _check(iz, "iz", torch.int32, (kk,), dev)
+    _check(cols, "cols", torch.int32, (kk, nslots), dev)
+    _check(psi, "psi", torch.complex128, (kk + 1, NORB, c), dev)
+    if kk == 0 or c == 0:
+        raise ValueError(f"{what} needs kk > 0 and C > 0")
+    return dev, ntype, nslots, kk, c
 
 
 def _raise_on(err: int, what: str):
@@ -196,16 +237,7 @@ def spmv_dot(hs, iz, cols, psi) -> Tuple[torch.Tensor, torch.Tensor]:
     """
     if _route(psi) == "cpu":
         return spmv_dot_ref(hs, iz, cols, psi)
-    dev = psi.device
-    ntype, nslots = hs.shape[:2]
-    kk = cols.shape[0]
-    c = psi.shape[2]
-    _check(hs, "hs", torch.complex128, (ntype, nslots, NORB, NORB), dev)
-    _check(iz, "iz", torch.int32, (kk,), dev)
-    _check(cols, "cols", torch.int32, (kk, nslots), dev)
-    _check(psi, "psi", torch.complex128, (kk + 1, NORB, c), dev)
-    if kk == 0 or c == 0:
-        raise ValueError("spmv_dot needs kk > 0 and C > 0")
+    dev, ntype, nslots, kk, c = _spmv_shape(hs, iz, cols, psi, "spmv_dot")
     smem = ntype * nslots * NORB * NORB * 16 + min(c, 32) * 8 * 8
     if smem > _SMEM_LIMIT:
         raise ValueError(f"type table needs {smem} B of shared memory, "
@@ -223,6 +255,43 @@ def spmv_dot(hs, iz, cols, psi) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 spmv_dot.launches = 0
+
+
+def spmv_dot_pipelined(hs, iz, cols,
+                       psi) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``y = H psi`` and the finished per-chain ``a = Re<psi|y>``.
+
+    Takes :func:`spmv_dot`'s inputs.  Returns y (kk, 9, C) complex128,
+    equal to :func:`spmv_dot`'s bit for bit on the card, and a (C,)
+    float64, the chain's Lanczos ``a``; reruns give the same bits.
+    """
+    if _route(psi) == "cpu":
+        return spmv_dot_pipelined_ref(hs, iz, cols, psi)
+    dev, ntype, nslots, kk, c = _spmv_shape(hs, iz, cols, psi,
+                                            "spmv_dot_pipelined")
+    if psi.data_ptr() % 16:
+        raise ValueError("psi: cp.async needs a 16-byte aligned start")
+    lib = _library()
+    smem = lib.haydock_spmv_dot_pipelined_smem(ntype, nslots, c)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"type table and ring need {smem} B of shared "
+                         f"memory, over the {_SMEM_LIMIT} B a block may use")
+    y = torch.empty((kk, NORB, c), dtype=torch.complex128, device=dev)
+    a = torch.empty(c, dtype=torch.float64, device=dev)
+    bpart = torch.empty((nrowblk(kk), c), dtype=torch.float64, device=dev)
+    # the last-block tickets, fresh for every launch; one per chain tile,
+    # and c is at least the number of tiles
+    counter = torch.zeros(c, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.haydock_spmv_dot_pipelined(
+            _ptr(hs), _ptr(iz), _ptr(cols), _ptr(psi), _ptr(y), _ptr(a),
+            _ptr(bpart), _ptr(counter), ntype, nslots, kk, c, _stream(dev))
+    _raise_on(err, "haydock_spmv_dot_pipelined")
+    spmv_dot_pipelined.launches += 1
+    return y, a
+
+
+spmv_dot_pipelined.launches = 0
 
 
 def update_norm(a, psi, v, pmn) -> Tuple[torch.Tensor, torch.Tensor]:

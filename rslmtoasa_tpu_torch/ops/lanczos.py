@@ -6,8 +6,13 @@ Port of ``rslmtoasa_tpu/ops/lanczos.py`` (reference ``source/recursion.f90``
 * the per-(atom, orbital) chain loop is the last axis of ``psi``
   (``C`` chains, ``c = atom * 9 + orbital``);
 * the recursion-depth loop is a Python loop of ``lld - 1`` steps, each
-  one :func:`~.haydock_kernels.spmv_dot` and one
-  :func:`~.haydock_kernels.update_norm` plus the rescale;
+  one SpMV+dot kernel and one :func:`~.haydock_kernels.update_norm` plus
+  the rescale.  Two engines, chosen as the JAX package's
+  ``lanczos_coefficients_flat_df64`` chooses its Pallas kernels
+  (``roll``, default from ``RSLMTO_ROLL``): K1'
+  :func:`~.haydock_kernels.spmv_dot`, whose row-block partials are folded
+  here, or K2' :func:`~.haydock_kernels.spmv_dot_pipelined`, which
+  returns the finished ``a``;
 * missing neighbours use the sentinel column ``kk``; ``psi`` carries one
   extra zero row so gathers need no masking.
 
@@ -17,7 +22,8 @@ Layouts match the JAX package: ``hs (ntype, nslots, 9, 9)``, ``iz (kk,)``,
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import os
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,9 +57,27 @@ class HaydockOperator(nn.Module):
         return block_spmv(self.hs, self.iz, self.cols, psi)
 
     def coefficients(self, psi0: torch.Tensor, lld: int,
-                     plain: bool = False):
+                     plain: bool = False, roll: Optional[bool] = None):
         return lanczos_coefficients(self.hs, self.iz, self.cols, psi0, lld,
-                                    plain=plain)
+                                    plain=plain, roll=roll)
+
+
+def roll_selected(roll: Optional[bool] = None) -> bool:
+    """Whether the recursion runs K2' (``roll``): ``roll=None`` reads
+    ``RSLMTO_ROLL`` as ``pallas_conv.lanczos_coefficients_flat_df64`` of
+    the JAX package does (any non-empty value selects it)."""
+    if roll is None:
+        return bool(os.environ.get("RSLMTO_ROLL"))
+    return bool(roll)
+
+
+def _folded(spmv_dot):
+    """The contract of K1' turned into that of K2': the row-block
+    partials summed into the chain's ``a``."""
+    def step(hs, iz, cols, psi):
+        v, apart = spmv_dot(hs, iz, cols, psi)
+        return v, apart.sum(0)
+    return step
 
 
 def lanczos_coefficients(
@@ -63,6 +87,7 @@ def lanczos_coefficients(
     psi0: torch.Tensor,
     lld: int,
     plain: bool = False,
+    roll: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run ``lld`` Haydock recursion steps for a batch of start vectors.
 
@@ -74,9 +99,15 @@ def lanczos_coefficients(
 
     The kernels are reached through the device dispatch of
     :mod:`.haydock_kernels`; ``plain=True`` runs the plain versions on any
-    device (the reference a card run is checked against).
+    device (the reference a card run is checked against).  ``roll``
+    picks the SpMV engine (:func:`roll_selected`): K2' on ``True``, K1'
+    on ``False``, ``RSLMTO_ROLL`` on ``None``.
     """
-    spmv_dot = hk.spmv_dot_ref if plain else hk.spmv_dot
+    if roll_selected(roll):
+        spmv_dot = (hk.spmv_dot_pipelined_ref if plain
+                    else hk.spmv_dot_pipelined)
+    else:
+        spmv_dot = _folded(hk.spmv_dot_ref if plain else hk.spmv_dot)
     update_norm = hk.update_norm_ref if plain else hk.update_norm
     kk1, b, c = psi0.shape
     kk = kk1 - 1
@@ -88,8 +119,7 @@ def lanczos_coefficients(
     b2 = torch.zeros((lld, c), dtype=torch.float64, device=dev)
     psi_rows = torch.view_as_real(psi)[:kk]  # (kk, b, c, 2)
     for ll in range(lld - 1):
-        v, apart = spmv_dot(hs, iz, cols, psi)
-        a_ll = apart.sum(0)
+        v, a_ll = spmv_dot(hs, iz, cols, psi)
         a[ll] = a_ll
         b2[ll] = summ
         pmn, nrm = update_norm(a_ll, psi, v, pmn)

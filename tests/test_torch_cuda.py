@@ -90,3 +90,39 @@ def test_recursion_kernels_match_plain(system, card):
                                    plain=True)
     assert (a - a0).abs().max() <= 1e-11
     assert (b2 - b20).abs().max() <= 1e-11
+
+
+@pytest.mark.parametrize("c", [9, 33])
+def test_spmv_dot_pipelined_kernel_matches_plain(system, card, c):
+    """K2' vs its plain version (33: a chain count that is no multiple of
+    the chain tile); its y equals that of K1' bit for bit, and a rerun
+    gives the same bits (no floating-point atomics)."""
+    _, op = system
+    psi = _psi(op.kk, c, 5, card)
+    n = hk.spmv_dot_pipelined.launches
+    y, a = hk.spmv_dot_pipelined(op.hs, op.iz, op.cols, psi)
+    assert hk.spmv_dot_pipelined.launches == n + 1
+    y0, a0 = hk.spmv_dot_pipelined_ref(op.hs, op.iz, op.cols, psi)
+    torch.cuda.synchronize()
+    assert (y - y0).abs().max() <= BAR * y0.abs().max()
+    assert (a - a0).abs().max() <= BAR * a0.abs().max()
+    y1, apart = hk.spmv_dot(op.hs, op.iz, op.cols, psi)
+    assert torch.equal(y, y1)
+    assert (a - apart.sum(0)).abs().max() <= 1e-13 * a.abs().max()
+    y2, a2 = hk.spmv_dot_pipelined(op.hs, op.iz, op.cols, psi)
+    assert torch.equal(y, y2) and torch.equal(a, a2)
+
+
+def test_recursion_roll_matches_plain(system, card):
+    _, op = system
+    lld = 6
+    psi0 = scalar_start_vectors(op.kk, [0, 3, 7], card)
+    n1, n2 = hk.spmv_dot.launches, hk.spmv_dot_pipelined.launches
+    a, b2 = lanczos_coefficients(op.hs, op.iz, op.cols, psi0, lld,
+                                 roll=True)
+    assert hk.spmv_dot_pipelined.launches - n2 == lld - 1
+    assert hk.spmv_dot.launches == n1
+    a0, b20 = lanczos_coefficients(op.hs, op.iz, op.cols, psi0, lld,
+                                   plain=True, roll=True)
+    assert (a - a0).abs().max() <= 1e-11
+    assert (b2 - b20).abs().max() <= 1e-11

@@ -219,3 +219,107 @@ def test_block_spmv_multi_type_matches_jax():
     op = HaydockOperator(blk, hb.iz, hb.cols)
     y = op(torch.from_numpy(psi)).numpy()
     assert np.abs(y - y_ref).max() <= 1e-13 * np.abs(y_ref).max()
+
+
+def test_spmv_dot_pipelined_ref_matches_pallas_roll(small_system):
+    """The plain version of K2' vs the rolling-DMA Pallas kernel, whose
+    dot partials leave the kernel summed over the planes."""
+    js, st, fs, hs_split, op = small_system
+    kk, c = op.kk, 4
+    rng = np.random.default_rng(13)
+    psi = np.zeros((kk + 1, 9, c), np.complex128)
+    psi[:kk] = _complex(rng, (kk, 9, c))
+    # the 2^-6 grid below one, as in test_spmv_dot_ref_matches_pallas
+    psi = np.round(psi / (1.25 * np.abs(psi).max()) * 64) / 64
+    wt, hsc, dxs, colshifts = pc.pack_flat_kernel(hs_split, st)
+    vh, vl, aph, apl = pc.conv_spmv_df64_pallas_roll(
+        wt, jnp.asarray(fs.mask), _to_flat(psi[:kk], fs), hsc, nchunks=7,
+        d=18, dxs=dxs, colshifts=colshifts, interpret=True)
+    y_ref = _from_flat(vh, vl, fs)
+    a_ref = (np.asarray(aph, np.float64)
+             + np.asarray(apl, np.float64)).sum(axis=(1, 2))
+
+    y, a = hk.spmv_dot_pipelined(op.hs, op.iz, op.cols,
+                                 torch.from_numpy(psi))
+    y, a = y.numpy(), a.numpy()
+    assert y.shape == (kk, 9, c) and a.shape == (c,)
+    assert np.abs(y - y_ref).max() <= BAR * np.abs(y_ref).max()
+    assert np.abs(a - a_ref).max() <= BAR * max(1.0, np.abs(a_ref).max())
+    # the same y as the plain K1', and a the sum of its partials
+    y1, apart = hk.spmv_dot_ref(op.hs, op.iz, op.cols, torch.from_numpy(psi))
+    assert np.array_equal(y, y1.numpy())
+    assert np.abs(a - apart.sum(0).numpy()).max() <= 1e-13 * max(
+        1.0, np.abs(a).max())
+
+
+def _roll_run(op, roll):
+    return op.coefficients(scalar_start_vectors(op.kk, [0, 3], CPU), 6,
+                           roll=roll)
+
+
+def test_lanczos_roll_matches_flat_df64_roll(small_system):
+    """The port's K2' recursion vs the JAX recursion through the
+    rolling-DMA Pallas kernel (``roll=True``, interpret mode)."""
+    js, st, fs, hs_split, op = small_system
+    wt, hsc, dxs, colshifts = pc.pack_flat_kernel(hs_split, st)
+    p0 = pc.flat_start_vectors(fs, [0, 3], 18, orbitals=range(9))
+    a_ref, b_ref = pc.lanczos_coefficients_flat_df64(
+        wt, hsc, fs.mask, p0, 6, dxs=dxs, colshifts=colshifts,
+        interpret=True, roll=True)
+    a, b2 = _roll_run(op, True)
+    assert np.abs(a.numpy() - a_ref).max() <= 1e-11
+    assert np.abs(b2.numpy() - b_ref).max() <= 1e-11
+
+
+def test_lanczos_roll_matches_complex128_and_k1(small_system):
+    """``roll=True`` vs the JAX complex128 recursion (1e-12) and vs the
+    port's own K1' engine (1e-13: only the dot's summation order
+    differs)."""
+    js, st, fs, hs_split, op = small_system
+    blk = js.ham.ee[:, :, :9, :9]
+    a_ref, b_ref = jl.lanczos_coefficients(
+        jnp.asarray(blk), jnp.asarray(js.ham.iz), jnp.asarray(js.ham.cols),
+        jnp.asarray(_start(js, [0, 3])), 6)
+    a, b2 = _roll_run(op, True)
+    assert np.abs(a.numpy() - np.asarray(a_ref)).max() <= 1e-12
+    assert np.abs(b2.numpy() - np.asarray(b_ref)).max() <= 1e-12
+    a1, b21 = _roll_run(op, False)
+    assert (a - a1).abs().max() <= 1e-13
+    assert (b2 - b21).abs().max() <= 1e-13
+
+
+@pytest.mark.parametrize("env, roll", [("1", True), (None, False)])
+def test_rslmto_roll_selects_the_engine(small_system, monkeypatch, env,
+                                        roll):
+    """``roll=None`` reads RSLMTO_ROLL: with it set a CPU run goes through
+    the plain K2' and never the plain K1', and the other way round."""
+    js, st, fs, hs_split, op = small_system
+    if env is None:
+        monkeypatch.delenv("RSLMTO_ROLL", raising=False)
+    else:
+        monkeypatch.setenv("RSLMTO_ROLL", env)
+    calls = {"k1": 0, "k2": 0}
+
+    def spy(name, fn):
+        def wrapped(*args):
+            calls[name] += 1
+            return fn(*args)
+        return wrapped
+
+    monkeypatch.setattr(hk, "spmv_dot_ref", spy("k1", hk.spmv_dot_ref))
+    monkeypatch.setattr(hk, "spmv_dot_pipelined_ref",
+                        spy("k2", hk.spmv_dot_pipelined_ref))
+    n1, n2 = hk.spmv_dot.launches, hk.spmv_dot_pipelined.launches
+    lanczos_coefficients(op.hs, op.iz, op.cols,
+                         scalar_start_vectors(op.kk, [0], CPU), 4)
+    assert calls == ({"k1": 0, "k2": 3} if roll else {"k1": 3, "k2": 0})
+    # CPU tensors reach the plain versions: no launch is counted
+    assert (hk.spmv_dot.launches, hk.spmv_dot_pipelined.launches) == (n1, n2)
+
+
+def test_pipelined_on_other_devices_raises(small_system):
+    js, st, fs, hs_split, op = small_system
+    meta = torch.empty((op.kk + 1, 9, 2), dtype=torch.complex128,
+                       device="meta")
+    with pytest.raises(ValueError, match="no Haydock kernel"):
+        hk.spmv_dot_pipelined(op.hs, op.iz, op.cols, meta)

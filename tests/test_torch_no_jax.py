@@ -70,3 +70,30 @@ def test_cuda_without_a_card_raises(tmp_path):
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_bulk_system_defaults_to_the_card():
+    """``BulkSystem(cfg=...)`` built directly asks for the card, as
+    ``BulkSystem.build`` does: without one it raises; the CPU is taken
+    only when asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from rslmtoasa_tpu_torch.models.bulk import BulkSystem
+    from rslmtoasa_tpu_torch.models.presets import synthetic_bcc_config
+
+    cfg = synthetic_bcc_config(rc=4.0, ndim=200, lld=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BulkSystem(cfg=cfg)
+    assert BulkSystem(cfg=cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_radial_source_is_the_ports_own_copy():
+    """The native solver builds from a file inside the port, byte-equal
+    to the JAX package's ``native/radial.cpp``."""
+    from rslmtoasa_tpu_torch import native
+
+    src = pathlib.Path(native.SOURCE).resolve()
+    port = ROOT / "rslmtoasa_tpu_torch"
+    assert src.is_relative_to(port)
+    jax_src = ROOT / "rslmtoasa_tpu" / "native" / "radial.cpp"
+    assert src.read_bytes() == jax_src.read_bytes()

@@ -30,6 +30,7 @@ from rslmtoasa_tpu_torch.models.presets import (
     synthetic_bcc_config,
 )
 from rslmtoasa_tpu_torch.models.scf import SelfConsistency
+from rslmtoasa_tpu_torch.ops import haydock_kernels as hk
 from rslmtoasa_tpu_torch.utils.namelist import write_namelist
 
 PRESET = dict(rc=8.0, ndim=2000, lld=8, nsp=1)
@@ -145,3 +146,26 @@ def test_cli_matches_jax_cli(tmp_path, capsys):
     assert {"totaldos.out", "X_out.nml", "report.out"} <= torch_files
     for fname in sorted(torch_files):
         _assert_files_close(dirs["jax"] / fname, dirs["torch"] / fname)
+
+
+def test_scf_roll_matches_jax(runs, tmp_path, monkeypatch):
+    """RSLMTO_ROLL=1 sends the port's SCF through the K2' engine (its
+    plain version on the CPU, once per step and spin); the result still
+    matches the JAX package's SCF within the same bars."""
+    monkeypatch.setenv("RSLMTO_ROLL", "1")
+    calls = []
+    ref = hk.spmv_dot_pipelined_ref
+
+    def spy(*args):
+        calls.append(1)
+        return ref(*args)
+
+    monkeypatch.setattr(hk, "spmv_dot_pipelined_ref", spy)
+    got = _scf(build_synthetic_bcc(device="cpu", **PRESET), SelfConsistency,
+               tmp_path)
+    assert len(calls) == NSTEP * 2 * (PRESET["lld"] - 1)
+    want = runs[0]
+    assert abs(got["etot"] - want["etot"]) <= 1e-9
+    assert abs(got["fermi"] - want["fermi"]) <= 1e-10
+    assert np.abs(got["ql"] - want["ql"]).max() <= 1e-10
+    assert np.abs(got["mom"] - want["mom"]).max() <= 1e-10
