@@ -7,17 +7,22 @@ code is then non-zero):
 
 0. card: name, torch and CUDA versions, nvidia-smi's name and power limit;
 1. build: ``libhaydock.so`` from ``rslmtoasa_tpu_torch/csrc`` with nvcc
-   (time and the ``-Xptxas -v`` lines of all three kernels), and the
-   native atomic-sphere solver with g++;
+   (time and the ``-Xptxas -v`` lines of every kernel), and the native
+   atomic-sphere solver with g++; ``cuobjdump -sass`` of the library must
+   show DMMA (FP64 tensor-core) instructions in both SpMV kernels;
 2. kernels vs plain: the three Haydock kernels against their plain
    PyTorch versions on the card, at the bench shape (bcc box 30,
    kk = 27000, 15 slots) for C = 9 chains (one SCF spin channel) and
    C = 144 (16 start atoms), totals and row-block partials within 1e-12
    of the output's scale; K2' ``spmv_dot_pipelined`` also against K1'
-   ``spmv_dot`` (y bit-equal, a within 1e-13 of the folded partials);
-   then CUDA-event times, plain and kernel in turns, and the time of one
-   library call computing the SpMV (``torch.sparse.mm`` of H as a
-   complex128 CSR matrix, which leaves out the dot);
+   ``spmv_dot`` (y bit-equal, a within 1e-13 of the folded partials), and
+   a rerun of each SpMV bit-identical; then CUDA-event times, plain and
+   kernel in turns, each kernel's share of its bound, the SpMVs' TFLOP/s
+   and gathered bytes, K1' taken apart (gathers only, MMAs only, every
+   column the row itself), and the time of one library call computing
+   the SpMV (``torch.sparse.mm`` of H as a complex128 CSR matrix, which
+   leaves out the dot); last both SpMVs on the B2 preset (two types mixed
+   within a row tile) at C = 9;
 3. recursion: ``lanczos_coefficients`` through the kernels vs the plain
    versions on the card, C = 144, lld = 20, for both engines (K1' and
    ``roll=True``, K2'): a and b2 within 1e-11;
@@ -142,6 +147,40 @@ def csr_operator(op):
                                    size=(9 * kk, 9 * (kk + 1)))
 
 
+def spmv_parity(hk, op, psi, what, records):
+    """Both SpMV kernels against their plain versions (y, partials and
+    their sum, a: within 1e-12 of scale), K2's y against K1's (bit-equal)
+    and a against K1's folded partials (1e-13), and a rerun of each
+    (bit-identical).  Returns (errors by kernel, |dy|, |da|)."""
+    args = (op.hs, op.iz, op.cols, psi)
+    y, ap = hk.spmv_dot(*args)
+    y2, a2 = hk.spmv_dot_pipelined(*args)
+    y0, ap0 = hk.spmv_dot_ref(*args)
+    y20, a20 = hk.spmv_dot_pipelined_ref(*args)
+    y1, ap1 = hk.spmv_dot(*args)
+    y3, a3 = hk.spmv_dot_pipelined(*args)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, pairs in (("spmv_dot", ((y, y0), (ap, ap0),
+                                      (ap.sum(0), ap0.sum(0)))),
+                        ("spmv_dot_pipelined", ((y2, y20), (a2, a20)))):
+        for got, want in pairs:
+            err, scale = rel_err(got, want)
+            check(err <= 1e-12 * scale, f"{name} {what}: {err} > "
+                  f"1e-12 * {scale}")
+            errs[name] = max(errs.get(name, 0.0), err)
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                               err)
+    dy = float((y2 - y).abs().max())
+    check(torch.equal(y2, y), f"K2' y equals K1' y, {what} (max diff {dy})")
+    da, scale = rel_err(a2, ap.sum(0))
+    check(da <= 1e-13 * scale, f"K2' a vs K1' folded partials, {what}: "
+          f"{da} > 1e-13 * {scale}")
+    check(torch.equal(y, y1) and torch.equal(ap, ap1) and torch.equal(y2, y3)
+          and torch.equal(a2, a3), f"reruns bit-identical, {what}")
+    return errs, dy, da
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -150,7 +189,10 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from rslmtoasa_tpu_torch import bench as port_bench
     from rslmtoasa_tpu_torch import native
-    from rslmtoasa_tpu_torch.models.presets import build_synthetic_bcc
+    from rslmtoasa_tpu_torch.models.presets import (
+        build_synthetic_b2,
+        build_synthetic_bcc,
+    )
     from rslmtoasa_tpu_torch.models.scf import SelfConsistency
     from rslmtoasa_tpu_torch.ops import haydock_kernels as hk
     from rslmtoasa_tpu_torch.ops.lanczos import (
@@ -187,6 +229,18 @@ def main():
                 "registers" in line or "Compiling" in line)):
             print("   ", line.strip(), flush=True)
     check("spmv_dot_pipelined_kernel" in log, "ptxas reports K2'")
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(hk._nvcc()), "cuobjdump"), "-sass",
+         hk.LIBRARY], capture_output=True, text=True, timeout=120).stdout
+    dmma = {}
+    for body in sass.split("Function : ")[1:]:
+        fname = body.split("\n", 1)[0]
+        for kname in ("spmv_dot_kernel", "spmv_dot_pipelined_kernel"):
+            if kname in fname:
+                dmma[kname] = body.count("DMMA")
+    say(1, f"cuobjdump -sass: DMMA instructions {dmma}")
+    check(len(dmma) == 2 and min(dmma.values()) > 0,
+          "both SpMV kernels multiply on the FP64 tensor cores (DMMA)")
     t0 = time.perf_counter()
     native.get_lib()
     say(1, f"built {os.path.relpath(native.LIBRARY)} in "
@@ -205,39 +259,28 @@ def main():
     csr = csr_operator(op)
     # occupied (row, slot) blocks: what this run's data needs
     nblocks = int((op.cols < kk).sum())
+    self_cols = torch.arange(kk, dtype=torch.int32, device=dev)[:, None] \
+        .expand(kk, nslots).contiguous()
     records = {n: {"max_abs_err": 0.0} for n in REPLACES}
     for c in (9, 144):
         psi = random_chains(kk, c, 1, dev)
         v = random_chains(kk, c, 2, dev)[:kk].contiguous()
         pmn = random_chains(kk, c, 3, dev)[:kk].contiguous()
         a = torch.linspace(-1.0, 1.0, c, dtype=torch.float64, device=dev)
-        y, ap = hk.spmv_dot(op.hs, op.iz, op.cols, psi)
+        errs, dy, da = spmv_parity(hk, op, psi, f"bcc C={c}", records)
         y0, ap0 = hk.spmv_dot_ref(op.hs, op.iz, op.cols, psi)
-        y2, a2 = hk.spmv_dot_pipelined(op.hs, op.iz, op.cols, psi)
-        y20, a20 = hk.spmv_dot_pipelined_ref(op.hs, op.iz, op.cols, psi)
         pmn_in = pmn.clone()
         out, nrm = hk.update_norm(a, psi, v, pmn_in)
         out0, nrm0 = hk.update_norm_ref(a, psi, v, pmn)
         torch.cuda.synchronize()
-        errs = {}
-        for name, pairs in (("spmv_dot", ((y, y0), (ap, ap0),
-                                          (ap.sum(0), ap0.sum(0)))),
-                            ("spmv_dot_pipelined", ((y2, y20), (a2, a20))),
-                            ("update_norm", ((out, out0), (nrm, nrm0),
-                                             (nrm.sum(0), nrm0.sum(0))))):
-            for got, want in pairs:
-                err, scale = rel_err(got, want)
-                check(err <= 1e-12 * scale, f"{name} C={c}: {err} > "
-                      f"1e-12 * {scale}")
-                errs[name] = max(errs.get(name, 0.0), err)
-                records[name]["max_abs_err"] = max(
-                    records[name]["max_abs_err"], err)
-        dy = float((y2 - y).abs().max())
-        check(torch.equal(y2, y), f"K2' y equals K1' y at C={c} "
-              f"(max diff {dy})")
-        da, scale = rel_err(a2, ap.sum(0))
-        check(da <= 1e-13 * scale, f"K2' a vs K1' folded partials C={c}: "
-              f"{da} > 1e-13 * {scale}")
+        for got, want in ((out, out0), (nrm, nrm0),
+                          (nrm.sum(0), nrm0.sum(0))):
+            err, scale = rel_err(got, want)
+            check(err <= 1e-12 * scale, f"update_norm C={c}: {err} > "
+                  f"1e-12 * {scale}")
+            errs["update_norm"] = max(errs.get("update_norm", 0.0), err)
+            records["update_norm"]["max_abs_err"] = max(
+                records["update_norm"]["max_abs_err"], err)
         y_buf = pmn.clone()
         ms = {}
         ms["spmv_dot"] = in_turns(
@@ -249,6 +292,15 @@ def main():
         ms["update_norm"] = in_turns(
             lambda: hk.update_norm_ref(a, psi, v, y_buf),
             lambda: hk.update_norm(a, psi, v, y_buf))
+        # K1' taken apart: its gathers alone, its MMAs alone, and all of it
+        # with every column the row itself (the same work, perfect locality)
+        halves = {
+            "gathers only": cuda_ms(lambda: hk.spmv_dot_half(
+                op.hs, op.iz, op.cols, psi, "gather")),
+            "MMAs only": cuda_ms(lambda: hk.spmv_dot_half(
+                op.hs, op.iz, op.cols, psi, "mma")),
+            "cols = row": cuda_ms(lambda: hk.spmv_dot(
+                op.hs, op.iz, self_cols, psi))}
         flat = psi.view(9 * (kk + 1), c)
         ylib = torch.sparse.mm(csr, flat).view(kk, 9, c)
         err, scale = rel_err(ylib, y0)
@@ -258,8 +310,12 @@ def main():
         # bounds from this run's inputs: each input read once, each
         # output written once; the SpMVs' flops over the occupied blocks
         spmv_flops = 8 * 81 * nblocks * c
-        spmv_bytes = nbytes(op.hs, op.iz, op.cols, psi, y, ap)
+        spmv_bytes = nbytes(op.hs, op.iz, op.cols, psi, y0, ap0)
         upd_bytes = nbytes(a, psi[:kk], v, pmn, out, nrm)
+        gathered = nblocks * 9 * c * 16
+        # what the kernels issue: every (row, chain) pair times 34 quads
+        # times 3 n-tiles of one m16n8k8 (64 MACs per pair)
+        dmma_flops = 2 * 64 * hk.NTILE * hk.nquads(nslots) * kk * c
         bounds = {
             "spmv_dot": (spmv_flops / FP64_TENSOR_FLOPS,
                          spmv_bytes / HBM_BYTES_S),
@@ -276,16 +332,42 @@ def main():
                     library_ms=None if name == "update_norm" else lib_ms)
         say(2, f"C={c}: " + "; ".join(
             f"{n} err {errs[n]:.3e} kernel {ms[n][0]:.4f} ms plain "
-            f"{ms[n][1]:.4f} ms bound {1e3 * max(bounds[n]):.4f} ms"
+            f"{ms[n][1]:.4f} ms bound {1e3 * max(bounds[n]):.4f} ms "
+            f"({100e3 * max(bounds[n]) / ms[n][0]:.1f}% of it)"
             for n in ms) + f"; K2' vs K1': |dy|={dy:.3e} |da|={da:.3e}")
+        for n in ("spmv_dot", "spmv_dot_pipelined"):
+            say(2, f"C={c}: {n} {spmv_flops / ms[n][0] / 1e9:.2f} TFLOP/s "
+                   f"on the occupied blocks, {dmma_flops / ms[n][0] / 1e9:.2f}"
+                   f" TFLOP/s issued to DMMA; gathered "
+                   f"{gathered:.4e} B, {gathered / ms[n][0] / 1e9:.3f} TB/s")
+        say(2, f"C={c}: padded DMMA work {dmma_flops:.4e} flop -> "
+               f"{1e3 * dmma_flops / FP64_TENSOR_FLOPS:.4f} ms at the FP64 "
+               f"tensor peak; K1' apart: " + ", ".join(
+                   f"{k} {t:.4f} ms" for k, t in halves.items()))
         say(2, f"C={c}: library torch.sparse.mm (CSR complex128, no dot): "
                f"{lib_ms:.4f} ms; SpMV flops {spmv_flops:.4e} -> "
                f"{1e3 * spmv_flops / FP64_VECTOR_FLOPS:.4f} ms at FP64 "
                f"vector peak, {1e3 * spmv_flops / FP64_TENSOR_FLOPS:.4f} "
                f"ms at FP64 tensor peak; update bytes {upd_bytes:.4e}")
-        del psi, v, pmn, pmn_in, y, y0, y2, y20, out, out0, y_buf
+        del psi, v, pmn, pmn_in, y0, out, out0, y_buf
         torch.cuda.empty_cache()
     del csr
+    # two types that mix within row tiles (B2), at one chain count
+    b2 = build_synthetic_b2(rc=8.0, nsp=1, device=dev)
+    op_b2 = HaydockOperator(b2.ham.ee[:, :, :9, :9], b2.ham.iz,
+                            b2.ham.cols).to(dev)
+    iz_b2 = op_b2.iz.cpu().numpy()
+    check(op_b2.hs.shape[0] == 2 and any(
+        len(set(iz_b2[i:i + hk.ROWS_PER_BLOCK])) == 2
+        for i in range(0, op_b2.kk, hk.ROWS_PER_BLOCK)),
+        "B2 mixes its two types within a row tile")
+    errs, dy, da = spmv_parity(hk, op_b2, random_chains(op_b2.kk, 9, 4, dev),
+                               "B2 C=9", records)
+    say(2, f"B2 kk={op_b2.kk} ntype=2 C=9: spmv_dot err "
+           f"{errs['spmv_dot']:.3e}, spmv_dot_pipelined err "
+           f"{errs['spmv_dot_pipelined']:.3e}; K2' vs K1' |dy|={dy:.3e} "
+           f"|da|={da:.3e}; reruns bit-identical")
+    del b2, op_b2
     torch.cuda.empty_cache()
 
     # 3. recursion ---------------------------------------------------

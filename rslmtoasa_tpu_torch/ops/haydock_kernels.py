@@ -7,15 +7,21 @@ their build.
   ``conv_spmv_df64_pallas``).
 * :func:`spmv_dot_pipelined` (K2') -- the same ``y``, with the gathered
   rows of ``psi`` streamed through a 3-stage ring of ``cp.async`` copies
-  in shared memory (two slots in flight per thread while one is
-  multiplied), and the finished per-chain ``a``: the last row block to
-  finish adds the blocks' partials in index order.  Its ``y`` equals
+  in shared memory, and the finished per-chain ``a``: the last block to
+  finish adds the row blocks' partials in index order.  Its ``y`` equals
   that of K1' bit for bit.  Replaces ``pallas_conv.py``
   ``_spmv_kernel_roll`` (via ``conv_spmv_df64_pallas_roll``), whose dot
   also leaves the kernel summed over the whole cluster.
 * :func:`update_norm` (K3') -- ``pmn' = pmn + v - a psi`` plus the
   per-row-block partials of ``|pmn'|^2`` that give ``b2``.  Replaces
   ``pallas_conv.py`` ``_update_kernel`` (via ``lanczos_update_pallas``).
+
+Both SpMVs multiply on the FP64 tensor cores (``mma.sync`` m16n8k8 f64).
+They read the type table realified and cut into the MMA's B fragments
+(:func:`pack_table`, built once per operator and cached by
+:func:`packed_table`).  :func:`spmv_packed_ref` multiplies through the
+packed table as the kernels' fragments do, so the CPU tests hold the
+packing against the plain product.
 
 The CUDA sources are ``csrc/haydock.cu`` (``sm_90a``, plain C interface,
 loaded with ctypes).  The library is built with nvcc into ``_build/`` at
@@ -39,12 +45,15 @@ import os
 import shutil
 import subprocess
 import tempfile
+import weakref
 from typing import Tuple
 
 import torch
 
 ROWS_PER_BLOCK = 32  # = ROWS_PER_BLOCK in csrc/haydock.cu
 NORB = 9
+QUAD = 4  # complex inputs per MMA k-step (= QUAD in csrc/haydock.cu)
+NTILE = 3  # n8 tiles over the 18 real outputs (= NTILE)
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use (H100)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -118,6 +127,82 @@ def update_norm_ref(a, psi, v, pmn) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 # ----------------------------------------------------------------------
+# the SpMV kernels' packed type table
+def nquads(nslots: int) -> int:
+    return -(-NORB * nslots // QUAD)
+
+
+def pack_table(hs: torch.Tensor) -> torch.Tensor:
+    """The type table realified and cut into ``mma.m16n8k8`` B fragments.
+
+    Returns (ntype, nquad, NTILE, 32, 2) float64: entry ``[ty, j, nt,
+    lane]`` is the pair (b0, b1) that lane ``lane = 4 g + t`` holds for
+    quad j and n-tile nt.  Quad j takes the complex inputs q = 4 j + t,
+    input q being orbital ``q % 9`` of slot ``q // 9``; b0 weighs its
+    real part, b1 its imaginary part, into real output n = 8 nt + g, which
+    is orbital ``n // 2``, real part for even n.  That is the realified
+    block [[Hr, -Hi], [Hi, Hr]].  Padding (q >= 9 nslots, orbital >= 9)
+    is zero."""
+    ntype, nslots = hs.shape[:2]
+    dev = hs.device
+    lane = torch.arange(32, device=dev)
+    g, t = lane // 4, lane % 4
+    q = QUAD * torch.arange(nquads(nslots), device=dev)[:, None, None] + t
+    n = 8 * torch.arange(NTILE, device=dev)[None, :, None] + g
+    m, b, a, ro = q // NORB, q % NORB, n // 2, n % 2
+    valid = (q < NORB * nslots) & (a < NORB)  # (nquad, NTILE, 32)
+    h = hs[:, m.clamp(max=nslots - 1), a.clamp(max=NORB - 1), b]
+    b0 = torch.where(ro == 0, h.real, h.imag)
+    b1 = torch.where(ro == 0, -h.imag, h.real)
+    tab = torch.stack([b0, b1], -1)
+    return torch.where(valid[..., None], tab, 0.0).contiguous()
+
+
+_TABLES: dict = {}
+
+
+def packed_table(hs: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_table` of ``hs`` on its device, built once and cached
+    while ``hs`` lives unchanged (the recursion passes the same ``hs`` at
+    every step)."""
+    hit = _TABLES.get(id(hs))
+    if hit is not None:
+        ref, ver, table = hit
+        if ref() is hs and ver == hs._version:
+            return table
+    table = pack_table(hs)
+    if len(_TABLES) >= 8:
+        _TABLES.clear()
+    _TABLES[id(hs)] = (weakref.ref(hs), hs._version, table)
+    return table
+
+
+def spmv_packed_ref(table: torch.Tensor, iz: torch.Tensor,
+                    cols: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
+    """``y = H psi`` through the packed table, as the kernels' fragments
+    combine it: the gathered inputs cut in quads, times the B fragments of
+    each row's type, summed over quads and lanes t."""
+    kk, nslots = cols.shape
+    c = psi.shape[2]
+    ntype, nquad = table.shape[:2]
+    x = psi[cols.long()].reshape(kk, nslots * NORB, c)
+    x = torch.cat([x, x.new_zeros(kk, QUAD * nquad - nslots * NORB, c)], 1)
+    x = x.view(kk, nquad, QUAD, c)
+    tab = table.view(ntype, nquad, NTILE, 8, QUAD, 2)  # [.., nt, g, t, half]
+    out = torch.zeros((kk, NTILE, 8, c), dtype=torch.float64,
+                      device=psi.device)
+    iz = iz.long()
+    for ty in range(ntype):
+        rows = torch.nonzero(iz == ty).squeeze(1)
+        xr = x[rows]
+        out[rows] = (torch.einsum("rjtc,jngt->rngc", xr.real, tab[ty, ..., 0])
+                     + torch.einsum("rjtc,jngt->rngc", xr.imag,
+                                    tab[ty, ..., 1]))
+    out = out.reshape(kk, NTILE * 8, c)[:, :2 * NORB].view(kk, NORB, 2, c)
+    return torch.complex(out[:, :, 0], out[:, :, 1])
+
+
+# ----------------------------------------------------------------------
 # build and load
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -163,14 +248,14 @@ def _library() -> ctypes.CDLL:
         build_library()
     lib = ctypes.CDLL(LIBRARY)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.haydock_spmv_dot.argtypes = [vp, vp, vp, vp, vp, vp,
-                                     ci, ci, ci, ci, vp]
+    lib.haydock_spmv_dot.argtypes = [vp] * 6 + [ci] * 4 + [vp]
     lib.haydock_spmv_dot.restype = ci
-    lib.haydock_spmv_dot_pipelined.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                               vp, ci, ci, ci, ci, vp]
+    lib.haydock_spmv_dot_pipelined.argtypes = [vp] * 8 + [ci] * 4 + [vp]
     lib.haydock_spmv_dot_pipelined.restype = ci
-    lib.haydock_spmv_dot_pipelined_smem.argtypes = [ci, ci, ci]
-    lib.haydock_spmv_dot_pipelined_smem.restype = ctypes.c_longlong
+    lib.haydock_spmv_part.argtypes = [ci] + [vp] * 6 + [ci] * 4 + [vp]
+    lib.haydock_spmv_part.restype = ci
+    lib.haydock_spmv_smem.argtypes = [ci] * 4
+    lib.haydock_spmv_smem.restype = ctypes.c_longlong
     lib.haydock_update_norm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, vp]
     lib.haydock_update_norm.restype = ci
     lib.haydock_rows_per_block.argtypes = []
@@ -227,6 +312,19 @@ def _route(t: torch.Tensor) -> str:
 
 # ----------------------------------------------------------------------
 # wrappers
+def _spmv_setup(hs, iz, cols, psi, what: str, pipelined: bool):
+    """Checks an SpMV's inputs and its shared memory; returns (device,
+    ntype, nslots, kk, C, library, packed table)."""
+    dev, ntype, nslots, kk, c = _spmv_shape(hs, iz, cols, psi, what)
+    lib = _library()
+    smem = lib.haydock_spmv_smem(int(pipelined), ntype, nslots, c)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{what}: type table and buffers need {smem} B of "
+                         f"shared memory, over the {_SMEM_LIMIT} B a block "
+                         f"may use")
+    return dev, ntype, nslots, kk, c, lib, packed_table(hs)
+
+
 def spmv_dot(hs, iz, cols, psi) -> Tuple[torch.Tensor, torch.Tensor]:
     """``y = H psi`` and the per-row-block partials of ``Re<psi|y>``.
 
@@ -237,24 +335,52 @@ def spmv_dot(hs, iz, cols, psi) -> Tuple[torch.Tensor, torch.Tensor]:
     """
     if _route(psi) == "cpu":
         return spmv_dot_ref(hs, iz, cols, psi)
-    dev, ntype, nslots, kk, c = _spmv_shape(hs, iz, cols, psi, "spmv_dot")
-    smem = ntype * nslots * NORB * NORB * 16 + min(c, 32) * 8 * 8
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"type table needs {smem} B of shared memory, "
-                         f"over the {_SMEM_LIMIT} B a block may use")
+    dev, ntype, nslots, kk, c, lib, table = _spmv_setup(
+        hs, iz, cols, psi, "spmv_dot", False)
     y = torch.empty((kk, NORB, c), dtype=torch.complex128, device=dev)
     apart = torch.empty((nrowblk(kk), c), dtype=torch.float64, device=dev)
-    lib = _library()
     with torch.cuda.device(dev):
         err = lib.haydock_spmv_dot(
-            _ptr(hs), _ptr(iz), _ptr(cols), _ptr(psi), _ptr(y),
-            _ptr(apart), ntype, nslots, kk, c, _stream(dev))
+            _ptr(table), _ptr(iz), _ptr(cols), _ptr(psi),
+            _ptr(y), _ptr(apart), ntype, nslots, kk, c, _stream(dev))
     _raise_on(err, "haydock_spmv_dot")
     spmv_dot.launches += 1
     return y, apart
 
 
 spmv_dot.launches = 0
+
+_HALVES = {"gather": 2, "mma": 3}  # Mode in csrc/haydock.cu
+
+
+def spmv_dot_half(hs, iz, cols, psi, half: str) -> None:
+    """Measurement only: K1' on the card with only its gathers
+    (``half="gather"``) or only its MMAs (``"mma"``), on the same grid,
+    tiles and epilogue, for timing its two halves apart.  Its outputs mean
+    nothing and are dropped; it counts no launch of K1'."""
+    dev, ntype, nslots, kk, c, lib, table = _spmv_setup(
+        hs, iz, cols, psi, "spmv_dot_half", False)
+    y = torch.empty((kk, NORB, c), dtype=torch.complex128, device=dev)
+    apart = torch.empty((nrowblk(kk), c), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.haydock_spmv_part(
+            _HALVES[half], _ptr(table), _ptr(iz), _ptr(cols),
+            _ptr(psi), _ptr(y), _ptr(apart), ntype, nslots, kk, c,
+            _stream(dev))
+    _raise_on(err, "haydock_spmv_part")
+
+
+_TICKETS: dict = {}
+
+
+def _ticket(dev: torch.device) -> torch.Tensor:
+    """K2's last-block ticket counter for the current stream of ``dev``:
+    zeroed once, and left zero by every launch (its last block resets
+    it), so launches in stream order share it."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _TICKETS[key]
 
 
 def spmv_dot_pipelined(hs, iz, cols,
@@ -267,25 +393,18 @@ def spmv_dot_pipelined(hs, iz, cols,
     """
     if _route(psi) == "cpu":
         return spmv_dot_pipelined_ref(hs, iz, cols, psi)
-    dev, ntype, nslots, kk, c = _spmv_shape(hs, iz, cols, psi,
-                                            "spmv_dot_pipelined")
     if psi.data_ptr() % 16:
         raise ValueError("psi: cp.async needs a 16-byte aligned start")
-    lib = _library()
-    smem = lib.haydock_spmv_dot_pipelined_smem(ntype, nslots, c)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"type table and ring need {smem} B of shared "
-                         f"memory, over the {_SMEM_LIMIT} B a block may use")
+    dev, ntype, nslots, kk, c, lib, table = _spmv_setup(
+        hs, iz, cols, psi, "spmv_dot_pipelined", True)
     y = torch.empty((kk, NORB, c), dtype=torch.complex128, device=dev)
     a = torch.empty(c, dtype=torch.float64, device=dev)
     bpart = torch.empty((nrowblk(kk), c), dtype=torch.float64, device=dev)
-    # the last-block tickets, fresh for every launch; one per chain tile,
-    # and c is at least the number of tiles
-    counter = torch.zeros(c, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.haydock_spmv_dot_pipelined(
-            _ptr(hs), _ptr(iz), _ptr(cols), _ptr(psi), _ptr(y), _ptr(a),
-            _ptr(bpart), _ptr(counter), ntype, nslots, kk, c, _stream(dev))
+            _ptr(table), _ptr(iz), _ptr(cols), _ptr(psi),
+            _ptr(y), _ptr(a), _ptr(bpart), _ptr(_ticket(dev)), ntype,
+            nslots, kk, c, _stream(dev))
     _raise_on(err, "haydock_spmv_dot_pipelined")
     spmv_dot_pipelined.launches += 1
     return y, a

@@ -10,7 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from rslmtoasa_tpu_torch.models.presets import build_synthetic_bcc
+from rslmtoasa_tpu_torch.models.presets import (
+    build_synthetic_b2,
+    build_synthetic_bcc,
+)
 from rslmtoasa_tpu_torch.ops import haydock_kernels as hk
 from rslmtoasa_tpu_torch.ops.lanczos import (
     HaydockOperator,
@@ -45,7 +48,15 @@ def _psi(kk, c, seed, device):
     return torch.from_numpy(psi).to(device)
 
 
-@pytest.mark.parametrize("c", [9, 40])
+@pytest.fixture(scope="module")
+def b2_system(card):
+    """The B2 preset (kk = 224, two types that mix within row tiles)."""
+    sys_ = build_synthetic_b2(rc=8.0, nsp=1, device="cpu")
+    return HaydockOperator(sys_.ham.ee[:, :, 9:, 9:], sys_.ham.iz,
+                           sys_.ham.cols).to(card)
+
+
+@pytest.mark.parametrize("c", [1, 9, 13, 40])
 def test_spmv_dot_kernel_matches_plain(system, card, c):
     _, op = system
     psi = _psi(op.kk, c, 1, card)
@@ -92,10 +103,10 @@ def test_recursion_kernels_match_plain(system, card):
     assert (b2 - b20).abs().max() <= 1e-11
 
 
-@pytest.mark.parametrize("c", [9, 33])
+@pytest.mark.parametrize("c", [1, 9, 13, 33])
 def test_spmv_dot_pipelined_kernel_matches_plain(system, card, c):
-    """K2' vs its plain version (33: a chain count that is no multiple of
-    the chain tile); its y equals that of K1' bit for bit, and a rerun
+    """K2' vs its plain version (13, 33: chain counts that are no multiple
+    of the chain tile); its y equals that of K1' bit for bit, and a rerun
     gives the same bits (no floating-point atomics)."""
     _, op = system
     psi = _psi(op.kk, c, 5, card)
@@ -126,3 +137,39 @@ def test_recursion_roll_matches_plain(system, card):
                                    plain=True, roll=True)
     assert (a - a0).abs().max() <= 1e-11
     assert (b2 - b20).abs().max() <= 1e-11
+
+
+@pytest.mark.parametrize("c", [9, 13])
+def test_spmv_kernels_on_b2(b2_system, card, c):
+    """Both SpMVs on two types mixed within row tiles: each matches its
+    plain version, K2's y equals K1's bit for bit, and reruns give the
+    same bits."""
+    op = b2_system
+    assert op.hs.shape[0] == 2
+    psi = _psi(op.kk, c, 6, card)
+    y, apart = hk.spmv_dot(op.hs, op.iz, op.cols, psi)
+    y2, a2 = hk.spmv_dot_pipelined(op.hs, op.iz, op.cols, psi)
+    y0, apart0 = hk.spmv_dot_ref(op.hs, op.iz, op.cols, psi)
+    torch.cuda.synchronize()
+    assert (y - y0).abs().max() <= BAR * y0.abs().max()
+    assert (apart - apart0).abs().max() <= BAR * apart0.abs().max()
+    assert (a2 - apart0.sum(0)).abs().max() <= BAR * a2.abs().max()
+    assert torch.equal(y, y2)
+    y1, apart1 = hk.spmv_dot(op.hs, op.iz, op.cols, psi)
+    y3, a3 = hk.spmv_dot_pipelined(op.hs, op.iz, op.cols, psi)
+    assert torch.equal(y, y1) and torch.equal(apart, apart1)
+    assert torch.equal(y2, y3) and torch.equal(a2, a3)
+
+
+def test_pipelined_ticket_counter_is_left_zero(system, card):
+    """K2's last block resets the shared ticket counter, so one zeroed
+    counter per stream serves every launch."""
+    _, op = system
+    psi = _psi(op.kk, 9, 7, card)
+    _, a = hk.spmv_dot_pipelined(op.hs, op.iz, op.cols, psi)
+    ticket = hk._ticket(card)
+    for _ in range(3):
+        _, a1 = hk.spmv_dot_pipelined(op.hs, op.iz, op.cols, psi)
+        assert hk._ticket(card) is ticket
+        torch.cuda.synchronize()
+        assert int(ticket.item()) == 0 and torch.equal(a, a1)

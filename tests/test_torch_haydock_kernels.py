@@ -323,3 +323,82 @@ def test_pipelined_on_other_devices_raises(small_system):
                        device="meta")
     with pytest.raises(ValueError, match="no Haydock kernel"):
         hk.spmv_dot_pipelined(op.hs, op.iz, op.cols, meta)
+
+
+def _jax_preset(name):
+    from rslmtoasa_tpu.models.presets import build_synthetic_b2
+
+    if name == "b2":
+        js = build_synthetic_b2(rc=8.0, nsp=1)
+        return js.ham.ee[:, :, 9:, 9:], js
+    if name == "bcc8":
+        js = build_synthetic_bcc(rc=8.0, ndim=2000, lld=8, nsp=1)
+    else:
+        js = build_synthetic_bcc(rc=16.0, ndim=4000, lld=6)
+    return js.ham.ee[:, :, :9, :9], js
+
+
+@pytest.mark.parametrize("preset, kk_want", [("bcc8", 180), ("b2", 224),
+                                             ("bcc16", 536)])
+def test_packed_table_matches_jax_block_spmv(preset, kk_want):
+    """The type table realified into the SpMV kernels' m16n8k8 B
+    fragments, multiplied as the kernels' fragments combine it, against
+    the JAX package's complex128 ``block_spmv``.
+    bcc rc=8 (kk = 180) and rc=16 (kk = 536) are no multiple of the
+    32-row tile; B2 has two types that mix within row tiles."""
+    blk, js = _jax_preset(preset)
+    hb = js.ham
+    kk = hb.cols.shape[0]
+    assert kk == kk_want
+    if preset == "b2":
+        iz = np.asarray(hb.iz)
+        assert any(len(set(iz[i:i + hk.ROWS_PER_BLOCK])) == 2
+                   for i in range(0, kk, hk.ROWS_PER_BLOCK))
+    rng = np.random.default_rng(17)
+    c = 6
+    psi = np.zeros((kk + 1, 9, c), np.complex128)
+    psi[:kk] = _complex(rng, (kk, 9, c))
+    y_ref = np.asarray(jl.block_spmv(jnp.asarray(blk), jnp.asarray(hb.iz),
+                                     jnp.asarray(hb.cols), jnp.asarray(psi)))
+    op = HaydockOperator(blk, hb.iz, hb.cols)
+    table = hk.packed_table(op.hs)
+    ntype, nslots = op.hs.shape[:2]
+    assert table.shape == (ntype, hk.nquads(nslots), hk.NTILE, 32, 2)
+    assert table.dtype == torch.float64 and table.is_contiguous()
+    y = hk.spmv_packed_ref(table, op.iz, op.cols,
+                           torch.from_numpy(psi)).numpy()
+    assert np.abs(y - y_ref).max() <= 1e-13 * np.abs(y_ref).max()
+
+
+def test_pack_table_realifies_and_pads():
+    """Spot entries of the packed table: b0/b1 weigh the real/imaginary
+    part of input q into real output n as [[Hr, -Hi], [Hi, Hr]] does, and
+    the padding (input 135, outputs 18..23) is zero."""
+    rng = np.random.default_rng(19)
+    hs = torch.from_numpy(_complex(rng, (2, 15, 9, 9)))
+    tab = hk.pack_table(hs)
+    for ty, j, nt, lane in [(0, 0, 0, 0), (1, 5, 1, 13), (0, 33, 0, 2),
+                            (1, 20, 2, 1), (0, 7, 2, 6)]:
+        g, t = divmod(lane, 4)
+        q, n = 4 * j + t, 8 * nt + g
+        a, ro = divmod(n, 2)
+        if q >= 135 or a >= 9:
+            assert tab[ty, j, nt, lane].abs().max() == 0
+            continue
+        h = hs[ty, q // 9, a, q % 9]
+        want = (h.real, -h.imag) if ro == 0 else (h.imag, h.real)
+        assert tab[ty, j, nt, lane].tolist() == [float(w) for w in want]
+    assert tab[:, 33, :, 3::4].abs().max() == 0  # q = 135
+    assert tab[:, :, 2, 8:].abs().max() == 0  # outputs 18..23 (g >= 2)
+
+
+def test_packed_table_is_cached(small_system):
+    """The table is packed once per operator and packed again when hs
+    changes in place."""
+    js, st, fs, hs_split, op = small_system
+    hs = op.hs.clone()
+    table = hk.packed_table(hs)
+    assert hk.packed_table(hs) is table
+    hs.mul_(2.0)
+    table2 = hk.packed_table(hs)
+    assert table2 is not table and torch.equal(table2, 2.0 * table)
