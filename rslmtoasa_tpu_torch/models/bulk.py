@@ -2,9 +2,10 @@
 
 Mirrors the reference's ``pre_processing='bravais'`` setup
 (``calculation.f90 pre_processing_bravais`` :550-623) followed by the
-scalar-Haydock pieces of ``self%run`` (``self.f90`` :676-764).  Geometry,
-structure constants and the Hamiltonian are built on the host (NumPy);
-the recursion runs on ``device`` through the Haydock kernels.
+recursion pieces of ``self%run`` (``self.f90`` :676-764): scalar Haydock,
+block Lanczos and Chebyshev.  Geometry, structure constants and the
+Hamiltonian are built on the host (NumPy); the recursion runs on
+``device`` through the Haydock kernels (K1'-K3') or the block step (K4).
 """
 
 from __future__ import annotations
@@ -24,10 +25,17 @@ from ..geometry import (
     primitive_cell,
     sbar_for_cluster,
 )
+from ..ops.block_lanczos import (
+    BlockOperator,
+    block_lanczos,
+    block_start_vectors,
+)
 from ..ops.lanczos import HaydockOperator, scalar_start_vectors
 from ..ops.ldos import orbital_density
+from ..parallel.dispatch import block_lanczos_auto, chebyshev_moments_auto
 from ..physics.energy_mesh import EnergyMesh
 from ..physics.hamiltonian import HamiltonianBlocks, build_bulkham
+from ..physics.harmonics import rotmag_loc
 from ..utils.device import resolve_device
 from ..utils.logger import g_logger
 from ..utils.timer import g_timer
@@ -46,6 +54,9 @@ class BulkSystem:
     # None means the card: resolve_device("cuda") raises without one;
     # a caller that wants the CPU passes it
     device: Optional[torch.device] = None
+    # run the recursions through the kernels' plain versions (on any
+    # device): the reference a card run is checked against
+    plain: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(
@@ -152,7 +163,7 @@ class BulkSystem:
             for s in (0, 1):  # spin channels are decoupled for nsp=1
                 blk = hb.ee[:, :, 9 * s : 9 * (s + 1), 9 * s : 9 * (s + 1)]
                 op = HaydockOperator(blk, hb.iz, hb.cols).to(self.device)
-                a, b2 = op.coefficients(psi0, lld)
+                a, b2 = op.coefficients(psi0, lld, plain=self.plain)
                 a_list.append(a.cpu().numpy())
                 b_list.append(b2.cpu().numpy())
         nrec = len(rec_atoms)
@@ -165,6 +176,87 @@ class BulkSystem:
             b2[:, 0:9, ia] = b_list[0][:, ia * 9 : (ia + 1) * 9]
             b2[:, 9:18, ia] = b_list[1][:, ia * 9 : (ia + 1) * 9]
         return a, b2
+
+    # ------------------------------------------------------------------
+    def _cached_psi0(self, kk: int, rec_atoms):
+        """Identity start blocks on ``self.device``, reused across SCF
+        iterations (only the Hamiltonian changes per iteration)."""
+        key = (kk, tuple(rec_atoms))
+        cached = getattr(self, "_psi0_block", None)
+        if cached is None or cached[0] != key:
+            self._psi0_block = (key, block_start_vectors(kk, rec_atoms,
+                                                         self.device))
+        return self._psi0_block[1]
+
+    # ------------------------------------------------------------------
+    def _lsham(self) -> np.ndarray:
+        hb = self.ham
+        if hb.lsham is not None:
+            return hb.lsham
+        return np.zeros((hb.ee.shape[0], 18, 18), dtype=np.complex128)
+
+    # ------------------------------------------------------------------
+    def run_block(self):
+        """Block-Lanczos recursion (``recur_b``) for all rec atoms on
+        ``self.device``.
+
+        Returns host (a_b, b2_b) of shape (lld, nrec, 18, 18).
+        """
+        cl = self.cluster
+        hb = self.ham
+        lld = self.cfg.control.lld
+        hoh = self.cfg.hamiltonian.hoh
+        rec_atoms = [int(j) - 1 for j in cl.irec]
+        lsham = self._lsham()
+        with g_timer.section("block-recursion"):
+            if self.cfg.hamiltonian.local_axis:
+                # rotate the full Hamiltonian to each rec atom's moment
+                # frame before its recursion (recursion.f90 recur_b
+                # :1830-1833 + hamiltonian rotate_to_local_axis
+                # :2442-2462); one atom at a time, at the full width, as
+                # the reference's serial loop
+                a_parts, b_parts = [], []
+                for ja in rec_atoms:
+                    mom = self.atoms[int(cl.iz[ja]) - 1].potential.mom
+                    op = BlockOperator(
+                        rotmag_loc(hb.ee, mom), hb.iz, hb.cols,
+                        rotmag_loc(lsham, mom), hoh=hoh,
+                        hso=rotmag_loc(hb.eeo, mom) if hoh else None,
+                        enim=rotmag_loc(hb.enim, mom) if hoh else None,
+                    ).to(self.device)
+                    psi0 = block_start_vectors(cl.kk, [ja], self.device)
+                    a_b, b2_b = block_lanczos(op, psi0, lld,
+                                              plain=self.plain)
+                    a_parts.append(a_b.cpu().numpy())
+                    b_parts.append(b2_b.cpu().numpy())
+                return (np.concatenate(a_parts, axis=1),
+                        np.concatenate(b_parts, axis=1))
+            psi0 = self._cached_psi0(cl.kk, rec_atoms)
+            return block_lanczos_auto(
+                hb.ee, lsham, hb.iz, hb.cols, psi0, lld, hoh=hoh,
+                hso=hb.eeo if hoh else None,
+                enim=hb.enim if hoh else None, plain=self.plain)
+
+    # ------------------------------------------------------------------
+    def run_chebyshev(self, emesh):
+        """Block Chebyshev/KPM moments (``chebyshev_recur``) for all rec
+        atoms on ``self.device``.
+
+        Returns host mu of shape (2*lld+2, nrec, 18, 18).
+        """
+        cl = self.cluster
+        hb = self.ham
+        lld = self.cfg.control.lld
+        hoh = self.cfg.hamiltonian.hoh
+        rec_atoms = [int(j) - 1 for j in cl.irec]
+        a = (emesh.energy_max - emesh.energy_min) / (2.0 - 0.3)
+        b = (emesh.energy_max + emesh.energy_min) / 2.0
+        psi0 = self._cached_psi0(cl.kk, rec_atoms)
+        with g_timer.section("chebyshev-recursion"):
+            return chebyshev_moments_auto(
+                hb.ee, self._lsham(), hb.iz, hb.cols, psi0, lld, a, b,
+                hoh=hoh, hso=hb.eeo if hoh else None,
+                enim=hb.enim if hoh else None, plain=self.plain)
 
     # ------------------------------------------------------------------
     def ldos(self, a: np.ndarray, b2: np.ndarray):

@@ -5,9 +5,10 @@ mixing -> Madelung -> atomic-sphere SCF (host) -> orthogonal->TB transform
 -> convergence check.  Produces the reference's observable outputs:
 ``totaldos.out`` rows and ``<El>_out.nml`` checkpoints.
 
-The port runs the bulk (``calctype='B'``) scalar-Haydock
-(``recur='lanczos'``) branch with the native atomic-sphere solver; the
-other branches raise ``NotImplementedError`` naming their ROADMAP item.
+The port runs the bulk (``calctype='B'``) branch with each of its
+recursions (``recur`` ``'lanczos'``, ``'block'``, ``'chebyshev'``) and the
+native atomic-sphere solver; the other branches raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,9 +19,12 @@ from typing import Optional
 
 import numpy as np
 
+from ..ops.block_lanczos import zsqr
+from ..ops.chebyshev import chebyshev_green
 from ..ops.lanczos import roll_selected
 from ..physics.bands import Bands
 from ..physics.energy_mesh import EnergyMesh
+from ..physics.greens import bgreen, get_terminf
 from ..physics.madelung import MadelungMatrix, bulkpot
 from ..physics.mixer import Mixer
 from ..utils.logger import g_logger
@@ -94,8 +98,6 @@ def magnetic_torques(atoms, iz_rec) -> np.ndarray:
 
 # where each branch the port does not run yet is queued (ROADMAP.md)
 ROADMAP_ITEM = {
-    "block": "queue 1, item 5 (block recursion, kernel K4)",
-    "chebyshev": "queue 1, item 6 (Chebyshev)",
     "I": "queue 1, item 9 (surface and impurity)",
     "S": "queue 1, item 9 (surface and impurity)",
     "atomsphere": "queue 1, item 15 (the Python atomic-sphere solver)",
@@ -106,12 +108,7 @@ class SelfConsistency:
     def __init__(self, sys: BulkSystem, workdir: str = "."):
         self.sys = sys
         self.cfg = sys.cfg
-        recur = self.cfg.control.recur
         calctype = self.cfg.control.calctype
-        if recur != "lanczos":
-            raise NotImplementedError(
-                f"recur={recur!r} is ROADMAP "
-                f"{ROADMAP_ITEM.get(recur, 'queue 1')}")
         if calctype != "B":
             raise NotImplementedError(
                 f"calctype={calctype!r} is ROADMAP "
@@ -152,15 +149,21 @@ class SelfConsistency:
         cfg = self.cfg
         sys = self.sys
         nstep = cfg.scf.nstep if nstep is None else nstep
-        spmv = ("K2' spmv_dot_pipelined" if roll_selected()
-                else "K1' spmv_dot")
-        g_logger.info(f"scalar recursion on {sys.device}: {spmv} + "
-                      "K3' update_norm")
+        recur = cfg.control.recur
+        g_logger.info(f"{recur} recursion on {sys.device}: "
+                      f"{self.engine()}")
         for it in range(1, nstep + 1):
             g_logger.info(f"SCF iteration {it}/{nstep}")
             with g_timer.section("recursion-phase"):
                 sys.build_hamiltonian()
-                a, b2 = sys.run_lanczos()
+                if recur == "block":
+                    a_b, b2_b = sys.run_block()
+                elif recur == "chebyshev":
+                    # the moments depend on the energy window scaling only
+                    emesh_ch = EnergyMesh.build(cfg.energy, fermi=self.fermi)
+                    mu = sys.run_chebyshev(emesh_ch)
+                else:
+                    a, b2 = sys.run_lanczos()
             self.mix.save_to("old", sys.atoms, self.iz_rec)
             for ia, isp in enumerate(self.iz_rec):
                 self.mix.mag_old[ia] = sys.atoms[isp].potential.mom
@@ -169,8 +172,23 @@ class SelfConsistency:
             with g_timer.section("dos-phase"):
                 emesh = EnergyMesh.build(cfg.energy, fermi=self.fermi)
                 sys.emesh = emesh
-                tdens = sys.ldos(a, b2)
-                g0 = self.g0_from_ldos(tdens)
+                if recur == "block":
+                    b_b = zsqr(b2_b)
+                    a_inf, b_inf = get_terminf(a_b, b_b)
+                    g0 = np.stack([
+                        bgreen(a_b[:, n], b_b[:, n], a_inf[n], b_inf[n],
+                               emesh.ene, sym_term=cfg.control.sym_term)
+                        for n in range(a_b.shape[1])
+                    ])
+                elif recur == "chebyshev":
+                    g0 = np.stack([
+                        chebyshev_green(mu[:, n], emesh.ene,
+                                        emesh.energy_min, emesh.energy_max)
+                        for n in range(mu.shape[1])
+                    ])
+                else:
+                    tdens = sys.ldos(a, b2)
+                    g0 = self.g0_from_ldos(tdens)
                 bands = Bands(emesh, sys.atoms, self.iz_rec, self.qqv,
                               nsp=cfg.control.nsp)
                 # totaldos.out is written with the pre-search Fermi level
@@ -223,6 +241,19 @@ class SelfConsistency:
                 break
             g_logger.info(f"Not converged, delta={self.mix.delta:.6e}")
         return self.state
+
+    # ------------------------------------------------------------------
+    def engine(self) -> str:
+        """What the recursion runs through, for the log."""
+        if self.sys.plain:
+            return "the kernels' plain versions"
+        if self.cfg.control.recur in ("block", "chebyshev"):
+            return ("K4 block_step, two launches per H psi (HoH)"
+                    if self.cfg.hamiltonian.hoh
+                    else "K4 block_step, one launch per H psi")
+        spmv = ("K2' spmv_dot_pipelined" if roll_selected()
+                else "K1' spmv_dot")
+        return f"{spmv} + K3' update_norm"
 
     # ------------------------------------------------------------------
     def run_scf(self):

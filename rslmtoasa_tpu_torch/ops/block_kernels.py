@@ -1,0 +1,169 @@
+"""The block recursion's device kernel K4, its plain version and its build.
+
+:func:`block_step` (K4) computes, for a block width d in {9, 18} and R
+start blocks side by side (C = R d columns),
+
+    y[i] = add[i] + sum_m T[iz[i], m] x[cols[i, m]] + O[izo[i]] p[i]
+
+and the per-row-tile partials of the Gram blocks ``p^H y``:
+``G[t, r] = sum_{i in tile t} p[i, :, r]^H y[i, :, r]``, shape
+``(nrowblk, R, d, d)``, where ``[:, r]`` is the d columns of start block r.
+The caller folds the partials with ``.sum(0)``, as K1''s caller does.
+``O`` (with ``izo`` and ``p``), ``add`` and the Gram are optional; ``pad``
+returns y with a zero row kk appended, ready to be the next ``x``.
+
+It replaces the XLA ops of ``rslmtoasa_tpu/ops/block_lanczos.py``
+``_spmv18`` (:27), ``_onsite18`` (:66) and ``gram_sum`` (:73), as
+``apply_h`` composes them (:147-159); the TPU had no Pallas kernel for the
+step.  The CUDA source is ``csrc/block_step.cu`` (``sm_90a``, plain C
+interface, loaded with ctypes), built with nvcc into ``_build/`` at first
+use.
+
+Dispatch: a CPU tensor goes to :func:`block_step_ref` (gather + einsum); a
+CUDA tensor launches the kernel or raises.  The wrapper counts its launches
+in ``block_step.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+from typing import Optional, Tuple
+
+import torch
+
+from . import cuda_build
+from .haydock_kernels import _check, _ptr, _raise_on, _route, _stream, \
+    block_spmv
+
+THREADS = 288  # = THREADS in csrc/block_step.cu
+WIDTHS = (9, 18)
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "block_step.cu")
+LIBRARY = os.path.join(cuda_build.BUILD_DIR, "libblockstep.so")
+
+
+def rows_per_tile(d: int) -> int:
+    """Rows of one Gram partial: the kernel's tile of THREADS / d rows."""
+    return THREADS // d
+
+
+def nrowblk(kk: int, d: int) -> int:
+    return -(-kk // rows_per_tile(d))
+
+
+# ----------------------------------------------------------------------
+# plain version
+def gram_partials(p: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(nrowblk, R, d, d) tile sums of ``p[i, :, r]^H y[i, :, r]`` over the
+    first kk = ``y.shape[0]`` rows of ``p``."""
+    kk, d, c = y.shape
+    r = c // d
+    rows = torch.einsum("ibra,ibrc->irac", p[:kk].view(kk, d, r, d).conj(),
+                        y.view(kk, d, r, d))
+    rt = rows_per_tile(d)
+    pad = nrowblk(kk, d) * rt - kk
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((pad,) + rows.shape[1:])])
+    return rows.view(-1, rt, r, d, d).sum(1)
+
+
+def block_step_ref(tab, iz, cols, x, onsite=None, izo=None, p=None,
+                   add=None, gram: bool = False, pad: bool = False
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of :func:`block_step`: gather + einsum."""
+    kk = cols.shape[0]
+    y = block_spmv(tab, iz, cols, x)
+    if onsite is not None:
+        y = y + torch.einsum("iab,ibc->iac", onsite[izo.long()], p[:kk])
+    if add is not None:
+        y = add + y
+    g = gram_partials(p, y) if gram else None
+    if pad:
+        y = torch.cat([y, y.new_zeros((1,) + y.shape[1:])])
+    return y, g
+
+
+# ----------------------------------------------------------------------
+# build and load
+def build_library() -> str:
+    """Compile ``csrc/block_step.cu`` into ``_build/libblockstep.so``;
+    returns nvcc's ``-Xptxas -v`` output."""
+    return cuda_build.build(SOURCE, LIBRARY)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    if not cuda_build.is_current(SOURCE, LIBRARY):
+        build_library()
+    lib = ctypes.CDLL(LIBRARY)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.block_step.argtypes = [ci] + [vp] * 10 + [ci] * 4 + [vp]
+    lib.block_step.restype = ci
+    lib.block_step_threads.argtypes = []
+    lib.block_step_threads.restype = ci
+    if lib.block_step_threads() != THREADS:
+        raise RuntimeError("csrc/block_step.cu THREADS differs from "
+                           "block_kernels.THREADS")
+    return lib
+
+
+# ----------------------------------------------------------------------
+# wrapper
+def block_step(tab, iz, cols, x, onsite=None, izo=None, p=None, add=None,
+               gram: bool = False, pad: bool = False
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K4: ``y = add + H x + O p`` and the Gram partials of ``p^H y``.
+
+    tab (ntype, nslots, d, d) complex128, iz (kk,) int32, cols (kk, nslots)
+    int32 with sentinel kk, x (kk+1, d, C) complex128 whose row kk is zero;
+    optional onsite (nto, d, d) with izo (kk,) int32, p (kk+1, d, C) (needed
+    by the onsite term and the Gram), add (kk, d, C).  Returns y
+    (kk + pad, d, C), its row kk zero with ``pad``, and with ``gram`` the
+    partials (nrowblk, R, d, d) complex128, else None.
+    """
+    if _route(x) == "cpu":
+        return block_step_ref(tab, iz, cols, x, onsite, izo, p, add, gram,
+                              pad)
+    dev = x.device
+    ntype, nslots, d = tab.shape[0], tab.shape[1], tab.shape[2]
+    kk, c = cols.shape[0], x.shape[2]
+    if d not in WIDTHS or c % d or kk == 0 or c == 0:
+        raise ValueError(f"block_step: d={d} must be 9 or 18, C={c} a "
+                         f"positive multiple of d, kk={kk} > 0")
+    if gram and pad:
+        raise ValueError("block_step: gram and pad do not combine")
+    if (onsite is None) != (izo is None):
+        raise ValueError("block_step: onsite and izo come together")
+    if (onsite is not None or gram) and p is None:
+        raise ValueError("block_step: the onsite term and the Gram need p")
+    z = torch.complex128
+    _check(tab, "tab", z, (ntype, nslots, d, d), dev)
+    _check(iz, "iz", torch.int32, (kk,), dev)
+    _check(cols, "cols", torch.int32, (kk, nslots), dev)
+    _check(x, "x", z, (kk + 1, d, c), dev)
+    if onsite is not None:
+        _check(onsite, "onsite", z, (onsite.shape[0], d, d), dev)
+        _check(izo, "izo", torch.int32, (kk,), dev)
+    if p is not None:
+        _check(p, "p", z, (kk + 1, d, c), dev)
+    if add is not None:
+        _check(add, "add", z, (kk, d, c), dev)
+    lib = _library()
+    y = torch.empty((kk + pad, d, c), dtype=z, device=dev)
+    g = (torch.empty((nrowblk(kk, d), c // d, d, d), dtype=z, device=dev)
+         if gram else None)
+    opt = lambda t: None if t is None else _ptr(t)  # noqa: E731
+    with torch.cuda.device(dev):
+        err = lib.block_step(
+            d, _ptr(tab), _ptr(iz), _ptr(cols), _ptr(x), opt(onsite),
+            opt(izo), opt(p), opt(add), _ptr(y), opt(g), nslots, kk,
+            int(pad), c, _stream(dev))
+    _raise_on(err, "block_step")
+    block_step.launches += 1
+    return y, g
+
+
+block_step.launches = 0

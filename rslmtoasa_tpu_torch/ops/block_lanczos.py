@@ -1,0 +1,171 @@
+"""Block-Lanczos recursion with d x d block coefficients (d = 18, or 9 per
+collinear spin sector).
+
+Port of ``rslmtoasa_tpu/ops/block_lanczos.py`` (reference
+``source/recursion.f90`` ``recur_b`` :1807, ``crecal_b`` :1873, ``hop_b``
+:1560, ``hop_b_hoh`` :1411) in complex128 PyTorch:
+
+* per level: ``apply_h`` and ``A_n = sum_i psi_i^H (H psi)_i`` in K4
+  (:func:`~.block_kernels.block_step`, the Gram as its epilogue); the
+  residual update, ``B^2``, ``B = sqrt(B^2)`` by ``torch.linalg.eigh`` and
+  the psi update with ``B^-1`` as torch ops on ``psi``'s device;
+* the R start blocks recur side by side; the depth loop is a Python loop;
+* the HoH overlap correction ``H = h - h obar h + enim + l.s`` is two K4
+  launches: ``h psi``, then ``h psi - eeo (h psi) + (enim + lsham) psi``.
+
+Layout: ``psi`` is ``(kk+1, d, R d)``, the scalar path's ``(kk+1, 9, C)``
+with the R start blocks' d columns side by side (``psi[i, b, r d + c]`` is
+the JAX package's ``psi[r, i, b, c]``); row kk is zero.  :func:`port_layout`
+converts.  The tables keep the JAX package's layout:
+``hs (ntype, nslots, d, d)``, ``iz (kk,)``, ``cols (kk, nslots)``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import block_kernels as bk
+
+
+def port_layout(psi: np.ndarray) -> np.ndarray:
+    """(R, n, d, d) (the JAX package's layout) -> (n, d, R d)."""
+    r, n, d, _ = psi.shape
+    return np.ascontiguousarray(psi.transpose(1, 2, 0, 3).reshape(n, d, r * d))
+
+
+class BlockOperator(nn.Module):
+    """``H`` of the block recursion as device buffers, so that
+    ``.to(device)`` moves the tables.
+
+    Non-HoH: ``H psi = hs psi + lsham psi``.  HoH: ``H psi = hs psi -
+    hso (hs psi) + (enim + lsham) psi``; ``-hso`` and ``enim + lsham`` are
+    built here once per operator."""
+
+    def __init__(self, hs, iz, cols, lsham, iz_onsite=None, hoh: bool = False,
+                 hso=None, enim=None):
+        super().__init__()
+        z = torch.complex128
+        as_c = lambda a: torch.as_tensor(  # noqa: E731
+            np.ascontiguousarray(a), dtype=z)
+        as_i = lambda a: torch.as_tensor(  # noqa: E731
+            np.ascontiguousarray(a), dtype=torch.int32)
+        self.hoh = bool(hoh)
+        self.register_buffer("hs", as_c(hs))
+        self.register_buffer("iz", as_i(iz))
+        self.register_buffer("cols", as_i(cols))
+        self.register_buffer("izo", as_i(iz if iz_onsite is None
+                                          else iz_onsite))
+        lsham = np.asarray(lsham)
+        if self.hoh:
+            self.register_buffer("onsite", as_c(np.asarray(enim) + lsham))
+            self.register_buffer("hso_neg", as_c(-np.asarray(hso)))
+        else:
+            self.register_buffer("onsite", as_c(lsham))
+            self.hso_neg = None
+
+    @property
+    def kk(self) -> int:
+        return self.cols.shape[0]
+
+    def forward(self, psi: torch.Tensor, gram: bool = False,
+                plain: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``(H psi, Gram partials of psi^H H psi or None)``: one K4 launch,
+        or two with HoH; the plain versions with ``plain``."""
+        step = bk.block_step_ref if plain else bk.block_step
+        if not self.hoh:
+            return step(self.hs, self.iz, self.cols, psi, self.onsite,
+                        self.izo, psi, gram=gram)
+        hpsi, _ = step(self.hs, self.iz, self.cols, psi, pad=True)
+        return step(self.hso_neg, self.iz, self.cols, hpsi, self.onsite,
+                    self.izo, psi, add=hpsi[:self.kk], gram=gram)
+
+
+def gram_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Gram blocks ``out[r, a, c] = sum_{i,b} x[i, b, r d + a] y[i, b,
+    r d + c]`` of (n, d, R d) arrays, one fused contraction; callers pass
+    ``x`` already conjugated (the JAX package's convention)."""
+    n, d, c = y.shape
+    return torch.einsum("ibra,ibrc->rac", x.reshape(n, d, c // d, d),
+                        y.reshape(n, d, c // d, d))
+
+
+def block_times(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``x[:, :, r] @ m[r]`` for every start block r: (n, d, R d) times
+    (R, d, d)."""
+    n, d, c = x.shape
+    return torch.einsum("ibrc,rcx->ibrx", x.reshape(n, d, c // d, d),
+                        m).reshape(n, d, c)
+
+
+def pad_row(x: torch.Tensor) -> torch.Tensor:
+    """(kk, d, C) -> (kk+1, d, C) with a zero row kk."""
+    return torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
+
+
+def eig_sqrt(b2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``B = U sqrt(ev) U^H`` and ``B^-1`` from the Hermitian
+    eigendecomposition (``crecal_b`` :1977-1999), with the JAX package's
+    clamp of (near-)zero eigenvalues at Lanczos breakdown."""
+    ev, u = torch.linalg.eigh(b2)
+    ev = torch.maximum(ev, 1e-300 + 1e-14 * ev[..., -1:])
+    lam = torch.sqrt(ev).to(b2.dtype)
+    uh = u.conj().transpose(-1, -2)
+    return (u * lam[..., None, :]) @ uh, (u / lam[..., None, :]) @ uh
+
+
+def block_lanczos(op: BlockOperator, psi0: torch.Tensor, lld: int,
+                  plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the block recursion from ``psi0`` (kk+1, d, R d) on ``op``'s
+    device.  Returns (a_b, b2_b) of shape (lld, R, d, d) with the reference
+    conventions: b2_b[0] = I, a_b[lld-1] = 0, b2_b[lld-1] = the last
+    residual Gram.  ``plain=True`` runs the plain versions."""
+    kk1, d, c = psi0.shape
+    kk, r = kk1 - 1, c // d
+    dev = psi0.device
+    a_b = torch.zeros((lld, r, d, d), dtype=psi0.dtype, device=dev)
+    b2_b = torch.zeros_like(a_b)
+    sum_b = torch.eye(d, dtype=psi0.dtype, device=dev).expand(r, d, d)
+    psi = psi0
+    pmn = torch.zeros((kk, d, c), dtype=psi0.dtype, device=dev)
+    for ll in range(lld - 1):
+        hpsi, g = op(psi, gram=True, plain=plain)
+        a_ll = g.sum(0)
+        pmn = hpsi - pmn
+        pmn = pmn - block_times(psi[:kk], a_ll)
+        b2 = gram_sum(pmn.conj(), pmn)
+        b, b_i = eig_sqrt(b2)
+        psi_new = pad_row(block_times(pmn, b_i))
+        pmn = block_times(psi[:kk], b)
+        psi = psi_new
+        a_b[ll] = a_ll
+        b2_b[ll] = sum_b
+        sum_b = b2
+    b2_b[lld - 1] = sum_b
+    return a_b, b2_b
+
+
+def block_start_vectors(kk: int, atom_indices: Sequence[int],
+                        device: torch.device) -> torch.Tensor:
+    """Identity start blocks, one per atom: (kk+1, 18, 18 R) complex128 on
+    ``device``, ``psi0[j_r, :, 18 r:18 (r+1)] = I`` (the JAX package's
+    ``block_start_vectors`` in the port's layout)."""
+    r = len(atom_indices)
+    psi0 = torch.zeros((kk + 1, 18, 18 * r), dtype=torch.complex128,
+                       device=device)
+    eye = torch.eye(18, dtype=torch.complex128, device=device)
+    for n, j in enumerate(atom_indices):
+        psi0[j, :, 18 * n:18 * (n + 1)] = eye
+    return psi0
+
+
+def zsqr(b2_b: np.ndarray) -> np.ndarray:
+    """Replace every B^2 block by its Hermitian square root
+    (``zsqr`` :1980-2028).  b2_b: (lld, R, 18, 18), NumPy."""
+    ev, u = np.linalg.eigh(b2_b)
+    lam = np.sqrt(ev)
+    return np.einsum("...ab,...b,...cb->...ac", u, lam, u.conj())

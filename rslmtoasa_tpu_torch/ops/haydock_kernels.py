@@ -42,13 +42,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import shutil
-import subprocess
-import tempfile
 import weakref
 from typing import Tuple
 
 import torch
+
+from . import cuda_build
+from .cuda_build import BUILD_DIR
 
 ROWS_PER_BLOCK = 32  # = ROWS_PER_BLOCK in csrc/haydock.cu
 NORB = 9
@@ -58,10 +58,7 @@ _SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use (H100)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "haydock.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
 LIBRARY = os.path.join(BUILD_DIR, "libhaydock.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 # ----------------------------------------------------------------------
@@ -204,42 +201,14 @@ def spmv_packed_ref(table: torch.Tensor, iz: torch.Tensor,
 
 # ----------------------------------------------------------------------
 # build and load
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
-    return path
-
-
 def build_library() -> str:
-    """Compile ``csrc/haydock.cu`` into ``_build/libhaydock.so``.
-
-    Returns nvcc's output (``-Xptxas -v``: registers, shared memory and
-    spills per kernel).  The library is written under a temporary name
-    and renamed, so a reader never sees a half-written file."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-        os.replace(tmp, LIBRARY)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return res.stdout + res.stderr
+    """Compile ``csrc/haydock.cu`` into ``_build/libhaydock.so``; returns
+    nvcc's ``-Xptxas -v`` output."""
+    return cuda_build.build(SOURCE, LIBRARY)
 
 
 def library_is_current() -> bool:
-    return (os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE))
+    return cuda_build.is_current(SOURCE, LIBRARY)
 
 
 @functools.cache

@@ -1,0 +1,128 @@
+"""Dispatch of the block and Chebyshev recursions on one device.
+
+Port of the CPU route of ``rslmtoasa_tpu/parallel/dispatch.py``
+(``block_lanczos_auto`` :295, ``chebyshev_moments_auto`` :480): when the
+problem decouples into collinear spin sectors (``nsp`` 1, no spin-orbit
+coupling) the recursion runs once per 9-wide sector, otherwise once at the
+full width 18.  Either way it runs on ``device`` through K4.  The mesh, the
+active-set wavefront and the TPU engines are not ported (ROADMAP queue 1,
+item 7).
+
+The tables come as host arrays (complex128, the JAX package's layouts),
+``psi0`` as a tensor in the port's layout ``(kk+1, d, R d)``; results come
+back as host arrays in the JAX package's layouts.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.block_lanczos import BlockOperator, block_lanczos
+from ..ops.chebyshev import chebyshev_moments
+from ..utils.logger import g_logger
+
+
+def _spin_diag(m) -> bool:
+    """True when every 18x18 block of ``m`` has exactly zero
+    spin-off-diagonal (up-down / down-up) 9x9 blocks."""
+    if m is None:
+        return True
+    m = np.asarray(m)
+    return (not np.count_nonzero(m[..., :9, 9:])
+            and not np.count_nonzero(m[..., 9:, :9]))
+
+
+def _spin_sectors(hs, lsham, hso, enim, psi0: torch.Tensor):
+    """Collinear spin-sector decoupling (nsp <= 2, no SOC).
+
+    When H, eeo, enim, the SOC table and the start blocks are all
+    spin-block-diagonal, the 18-wide block recursion decouples exactly
+    into two 9-wide recursions: a_ll, B^2, B, B^-1 and psi stay
+    spin-block-diagonal at every step, so running the 9x9 sectors
+    separately reproduces the 18x18 recursion to roundoff, for a quarter
+    of the SpMV work.  Returns [(hs, lsham, hso, enim, psi0)] per sector,
+    or ``None`` when the problem does not decouple."""
+    if psi0.shape[1] != 18:
+        return None
+    n = psi0.shape[0]
+    p = psi0.view(n, 18, -1, 18)  # p[i, :, r]: row i of start block r
+    if not (_spin_diag(hs) and _spin_diag(lsham) and _spin_diag(hso)
+            and _spin_diag(enim)
+            and not bool(p[:, :9, :, 9:].any() or p[:, 9:, :, :9].any())):
+        return None
+
+    def cut(m, sl):
+        return None if m is None else np.ascontiguousarray(
+            np.asarray(m)[..., sl, sl])
+
+    out = []
+    for s in range(2):
+        sl = slice(9 * s, 9 * s + 9)
+        ps = p[:, sl, :, sl].reshape(n, 9, -1)
+        out.append((cut(hs, sl), cut(lsham, sl), cut(hso, sl),
+                    cut(enim, sl), ps))
+    return out
+
+
+def _spin_assemble(xu, xd):
+    """Reassemble per-sector (..., 9, 9) results into spin-block-diagonal
+    (..., 18, 18) arrays (the off-diagonal blocks are exactly zero)."""
+    xu = np.asarray(xu)
+    out = np.zeros(xu.shape[:-2] + (18, 18), xu.dtype)
+    out[..., :9, :9] = xu
+    out[..., 9:, 9:] = np.asarray(xd)
+    return out
+
+
+def block_lanczos_auto(hs, lsham, iz, cols, psi0: torch.Tensor, lld: int, *,
+                       hoh: bool = False, hso=None, enim=None,
+                       plain: bool = False):
+    """Block recursion of the R start blocks of ``psi0`` on its device, per
+    spin sector where the problem decouples.  Returns host (a_b, b2_b) of
+    shape (lld, R, 18, 18) (or d wide for a d-wide ``psi0``)."""
+    sec = _spin_sectors(hs, lsham, hso, enim, psi0)
+    if sec is not None:
+        outs = [block_lanczos_auto(h_, l_, iz, cols, p_, lld, hoh=hoh,
+                                   hso=o_, enim=e_, plain=plain)
+                for (h_, l_, o_, e_, p_) in sec]
+        return (_spin_assemble(outs[0][0], outs[1][0]),
+                _spin_assemble(outs[0][1], outs[1][1]))
+    op = BlockOperator(hs, iz, cols, lsham, hoh=hoh, hso=hso,
+                       enim=enim).to(psi0.device)
+    a_b, b2_b = block_lanczos(op, psi0, lld, plain=plain)
+    return a_b.cpu().numpy(), b2_b.cpu().numpy()
+
+
+def _diverged(mu: np.ndarray) -> bool:
+    """The reference's divergence test (recursion.f90:2594-2596): the
+    SIGNED real sum of the newest even-moment block per start block above
+    1000 means the spectrum leaks outside the scaled energy window."""
+    last = mu[-1].real.reshape(mu.shape[1], -1).sum(axis=1)
+    return bool((last > 1.0e3).any())
+
+
+def chebyshev_moments_auto(hs, lsham, iz, cols, psi0: torch.Tensor,
+                           lld: int, a: float, b: float, *,
+                           hoh: bool = False, hso=None, enim=None,
+                           guard: bool = True,
+                           plain: bool = False) -> np.ndarray:
+    """Chebyshev block moments of the start blocks of ``psi0`` on its
+    device, per spin sector where the problem decouples.  Returns host mu
+    (2 lld + 2, R, 18, 18).  The divergence guard sees the assembled
+    18 x 18 blocks, as the reference sums the full block."""
+    sec = _spin_sectors(hs, lsham, hso, enim, psi0)
+    if sec is not None:
+        outs = [chebyshev_moments_auto(h_, l_, iz, cols, p_, lld, a, b,
+                                       hoh=hoh, hso=o_, enim=e_,
+                                       guard=False, plain=plain)
+                for (h_, l_, o_, e_, p_) in sec]
+        mu = _spin_assemble(outs[0], outs[1])
+    else:
+        op = BlockOperator(hs, iz, cols, lsham, hoh=hoh, hso=hso,
+                           enim=enim).to(psi0.device)
+        mu = chebyshev_moments(op, psi0, lld, a, b, plain=plain).cpu().numpy()
+    if not np.isfinite(mu).all() or (guard and _diverged(mu)):
+        g_logger.fatal("Chebyshev moments did not converge. Check energy "
+                       "limits energy_min and energy_max")
+    return mu

@@ -1,4 +1,5 @@
-"""The Haydock CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels (Haydock K1'-K3', block step K4) against their plain
+versions, on the card.
 
 Marked ``gpu``: without a CUDA card every test skips (the check is made
 in the fixture, never at import).  On a machine with one, run
@@ -14,7 +15,14 @@ from rslmtoasa_tpu_torch.models.presets import (
     build_synthetic_b2,
     build_synthetic_bcc,
 )
+from rslmtoasa_tpu_torch.ops import block_kernels as bk
 from rslmtoasa_tpu_torch.ops import haydock_kernels as hk
+from rslmtoasa_tpu_torch.ops.block_lanczos import (
+    BlockOperator,
+    block_lanczos,
+    block_start_vectors,
+)
+from rslmtoasa_tpu_torch.ops.chebyshev import chebyshev_moments
 from rslmtoasa_tpu_torch.ops.lanczos import (
     HaydockOperator,
     lanczos_coefficients,
@@ -173,3 +181,101 @@ def test_pipelined_ticket_counter_is_left_zero(system, card):
         assert hk._ticket(card) is ticket
         torch.cuda.synchronize()
         assert int(ticket.item()) == 0 and torch.equal(a, a1)
+
+
+# ----------------------------------------------------------------------
+# K4 block_step
+@pytest.fixture(scope="module")
+def block_system(card):
+    """bcc with spin-orbit coupling and the HoH tables (d = 18)."""
+    return build_synthetic_bcc(rc=16.0, ndim=4000, lld=6, nsp=2, hoh=True,
+                               device="cpu")
+
+
+def _blocks(kk, d, r, seed, device):
+    """Random (kk+1, d, r d) start blocks with a zero row kk."""
+    rng = np.random.default_rng(seed)
+    psi = np.zeros((kk + 1, d, r * d), np.complex128)
+    psi[:kk] = rng.standard_normal((kk, d, r * d)) \
+        + 1j * rng.standard_normal((kk, d, r * d))
+    return torch.from_numpy(psi).to(device)
+
+
+def _block_operator(sys_, d, hoh, card):
+    hb = sys_.ham
+    sl = slice(0, d)  # d = 9: the up-spin sector
+    return BlockOperator(hb.ee[..., sl, sl], hb.iz, hb.cols,
+                         hb.lsham[..., sl, sl], hoh=hoh,
+                         hso=hb.eeo[..., sl, sl] if hoh else None,
+                         enim=hb.enim[..., sl, sl] if hoh else None).to(card)
+
+
+def _k4_matches_plain(op, psi):
+    """K4 (one launch, two with HoH) against its plain version: y, the Gram
+    partials and their sum within 1e-12 of scale; a rerun bit-identical."""
+    n = bk.block_step.launches
+    y, g = op(psi, gram=True)
+    assert bk.block_step.launches == n + (2 if op.hoh else 1)
+    y0, g0 = op(psi, gram=True, plain=True)
+    torch.cuda.synchronize()
+    assert g.shape == g0.shape == (bk.nrowblk(op.kk, psi.shape[1]),
+                                   psi.shape[2] // psi.shape[1],
+                                   psi.shape[1], psi.shape[1])
+    for got, want in ((y, y0), (g, g0), (g.sum(0), g0.sum(0))):
+        assert (got - want).abs().max() <= BAR * want.abs().max()
+    y1, g1 = op(psi, gram=True)
+    assert torch.equal(y, y1) and torch.equal(g, g1)
+
+
+@pytest.mark.parametrize("hoh", [False, True])
+@pytest.mark.parametrize("d", [9, 18])
+def test_block_step_kernel_matches_plain(block_system, card, d, hoh):
+    op = _block_operator(block_system, d, hoh, card)
+    _k4_matches_plain(op, _blocks(op.kk, d, 2, 8, card))
+
+
+def test_block_step_kernel_on_b2(card):
+    """Two types mixed within row tiles, two start blocks, d = 18."""
+    sys_ = build_synthetic_b2(rc=8.0, nsp=2, device="cpu")
+    hb = sys_.ham
+    op = BlockOperator(hb.ee, hb.iz, hb.cols, hb.lsham).to(card)
+    assert op.hs.shape[0] == 2
+    _k4_matches_plain(op, _blocks(op.kk, 18, 2, 9, card))
+
+
+def test_block_step_kernel_pads_and_adds(block_system, card):
+    """The HoH step's first launch: y with a zero row kk, no onsite, add or
+    Gram; then add alone."""
+    op = _block_operator(block_system, 18, False, card)
+    psi = _blocks(op.kk, 18, 1, 10, card)
+    y, g = bk.block_step(op.hs, op.iz, op.cols, psi, pad=True)
+    y0, _ = bk.block_step_ref(op.hs, op.iz, op.cols, psi, pad=True)
+    torch.cuda.synchronize()
+    assert g is None and y.shape == (op.kk + 1, 18, 18)
+    assert not y[op.kk].any()
+    assert (y - y0).abs().max() <= BAR * y0.abs().max()
+    add = psi[:op.kk]
+    z, _ = bk.block_step(op.hs, op.iz, op.cols, psi, add=add)
+    z0, _ = bk.block_step_ref(op.hs, op.iz, op.cols, psi, add=add)
+    torch.cuda.synchronize()
+    assert (z - z0).abs().max() <= BAR * z0.abs().max()
+
+
+@pytest.mark.parametrize("hoh", [False, True])
+def test_block_recursions_match_plain(block_system, card, hoh):
+    """block_lanczos and chebyshev_moments through K4 against the plain
+    versions on the card: 1e-11; one launch per H psi (two with HoH)."""
+    op = _block_operator(block_system, 18, hoh, card)
+    psi0 = block_start_vectors(op.kk, [0, 5], card)
+    lld = 6
+    per = 2 if hoh else 1
+    n = bk.block_step.launches
+    a, b2 = block_lanczos(op, psi0, lld)
+    assert bk.block_step.launches - n == per * (lld - 1)
+    a0, b20 = block_lanczos(op, psi0, lld, plain=True)
+    assert (a - a0).abs().max() <= 1e-11 and (b2 - b20).abs().max() <= 1e-11
+    n = bk.block_step.launches
+    mu = chebyshev_moments(op, psi0, lld, 2.5 / 1.7, -0.25)
+    assert bk.block_step.launches - n == per * (lld + 1)
+    mu0 = chebyshev_moments(op, psi0, lld, 2.5 / 1.7, -0.25, plain=True)
+    assert (mu - mu0).abs().max() <= 1e-11

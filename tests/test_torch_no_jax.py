@@ -40,6 +40,16 @@ op = HaydockOperator(hs, np.zeros(kk), cols)
 a, b2 = op.coefficients(scalar_start_vectors(kk, [0], torch.device("cpu")),
                         4)
 assert a.shape == (4, 9) and bool(torch.isfinite(b2).all())
+
+from rslmtoasa_tpu_torch.ops.block_lanczos import (
+    BlockOperator, block_lanczos, block_start_vectors)
+
+hs18 = rng.standard_normal((1, nslots, 18, 18)) + 1j * rng.standard_normal(
+    (1, nslots, 18, 18))
+bop = BlockOperator(hs18, np.zeros(kk), cols, np.zeros((1, 18, 18)))
+a_b, b2_b = block_lanczos(
+    bop, block_start_vectors(kk, [0], torch.device("cpu")), 3)
+assert a_b.shape == (3, 1, 18, 18) and bool(torch.isfinite(b2_b).all())
 print(len(names), "jax" in sys.modules)
 """
 
