@@ -181,7 +181,7 @@ class BulkSystem:
     def _cached_psi0(self, kk: int, rec_atoms):
         """Identity start blocks on ``self.device``, reused across SCF
         iterations (only the Hamiltonian changes per iteration)."""
-        key = (kk, tuple(rec_atoms))
+        key = (kk, tuple(rec_atoms), self.device)
         cached = getattr(self, "_psi0_block", None)
         if cached is None or cached[0] != key:
             self._psi0_block = (key, block_start_vectors(kk, rec_atoms,

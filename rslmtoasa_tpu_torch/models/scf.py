@@ -173,19 +173,16 @@ class SelfConsistency:
                 emesh = EnergyMesh.build(cfg.energy, fermi=self.fermi)
                 sys.emesh = emesh
                 if recur == "block":
-                    b_b = zsqr(b2_b)
-                    a_inf, b_inf = get_terminf(a_b, b_b)
-                    g0 = np.stack([
-                        bgreen(a_b[:, n], b_b[:, n], a_inf[n], b_inf[n],
-                               emesh.ene, sym_term=cfg.control.sym_term)
-                        for n in range(a_b.shape[1])
-                    ])
+                    with g_timer.section("terminators"):  # host
+                        b_b = zsqr(b2_b)
+                        a_inf, b_inf = get_terminf(a_b, b_b)
+                    with g_timer.section("green-function"):
+                        g0 = bgreen(a_b, b_b, a_inf, b_inf, emesh.ene,
+                                    sys.device, sym_term=cfg.control.sym_term)
                 elif recur == "chebyshev":
-                    g0 = np.stack([
-                        chebyshev_green(mu[:, n], emesh.ene,
-                                        emesh.energy_min, emesh.energy_max)
-                        for n in range(mu.shape[1])
-                    ])
+                    with g_timer.section("green-function"):
+                        g0 = chebyshev_green(mu, emesh.ene, emesh.energy_min,
+                                             emesh.energy_max, sys.device)
                 else:
                     tdens = sys.ldos(a, b2)
                     g0 = self.g0_from_ldos(tdens)

@@ -19,6 +19,18 @@ step.  The CUDA source is ``csrc/block_step.cu`` (``sm_90a``, plain C
 interface, loaded with ctypes), built with nvcc into ``_build/`` at first
 use.
 
+The kernel multiplies on the FP64 tensor cores (``mma.sync`` m16n8k8 f64):
+each (row, column) pair is one GEMM row, its K axis the d inputs of every
+slot and of the onsite block in quads of 4, its N axis the 2d real outputs.
+It reads the type and onsite tables realified and cut into the MMA's B
+fragments (``haydock_kernels.pack_table`` at width d, built once per table
+and cached); ``haydock_kernels.spmv_packed_ref`` multiplies through them
+as the fragments combine, so the CPU tests hold the packing against the
+plain product.  A tile is :func:`rows_per_tile` rows of one start block, and
+the Gram partials are per tile.  Where the tables of all types do not fit
+shared memory (two types at d = 18), the kernel walks the slot quads in
+chunks (:func:`chunks`).
+
 Dispatch: a CPU tensor goes to :func:`block_step_ref` (gather + einsum); a
 CUDA tensor launches the kernel or raises.  The wrapper counts its launches
 in ``block_step.launches``.
@@ -35,9 +47,9 @@ import torch
 
 from . import cuda_build
 from .haydock_kernels import _check, _ptr, _raise_on, _route, _stream, \
-    block_spmv
+    block_spmv, pack_table, packed_table
 
-THREADS = 288  # = THREADS in csrc/block_step.cu
+TILE_PAIRS = 288  # (row, column) pairs of a tile (= TILE_PAIRS in the .cu)
 WIDTHS = (9, 18)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,8 +58,8 @@ LIBRARY = os.path.join(cuda_build.BUILD_DIR, "libblockstep.so")
 
 
 def rows_per_tile(d: int) -> int:
-    """Rows of one Gram partial: the kernel's tile of THREADS / d rows."""
-    return THREADS // d
+    """Rows of one Gram partial: the kernel's tile of TILE_PAIRS / d rows."""
+    return TILE_PAIRS // d
 
 
 def nrowblk(kk: int, d: int) -> int:
@@ -87,6 +99,13 @@ def block_step_ref(tab, iz, cols, x, onsite=None, izo=None, p=None,
 
 
 # ----------------------------------------------------------------------
+# the packed tables (haydock_kernels.pack_table, generic in d)
+def pack_onsite(onsite: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_table` of the onsite table (nto, d, d) as one slot."""
+    return pack_table(onsite[:, None])
+
+
+# ----------------------------------------------------------------------
 # build and load
 def build_library() -> str:
     """Compile ``csrc/block_step.cu`` into ``_build/libblockstep.so``;
@@ -100,14 +119,28 @@ def _library() -> ctypes.CDLL:
         build_library()
     lib = ctypes.CDLL(LIBRARY)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.block_step.argtypes = [ci] + [vp] * 10 + [ci] * 4 + [vp]
+    lib.block_step.argtypes = [ci] + [vp] * 10 + [ci] * 6 + [vp]
     lib.block_step.restype = ci
-    lib.block_step_threads.argtypes = []
-    lib.block_step_threads.restype = ci
-    if lib.block_step_threads() != THREADS:
-        raise RuntimeError("csrc/block_step.cu THREADS differs from "
-                           "block_kernels.THREADS")
+    lib.block_step_chunks.argtypes = [ci] * 6
+    lib.block_step_chunks.restype = ci
+    lib.block_step_tile_pairs.argtypes = []
+    lib.block_step_tile_pairs.restype = ci
+    if lib.block_step_tile_pairs() != TILE_PAIRS:
+        raise RuntimeError("csrc/block_step.cu TILE_PAIRS differs from "
+                           "block_kernels.TILE_PAIRS")
     return lib
+
+
+def chunks(d: int, ntype: int, nto: int, nslots: int, onsite: bool,
+           gram: bool) -> int:
+    """Chunks of slot quads a launch of this shape walks on the current
+    card: 1 when every type's table stays in shared memory."""
+    n = _library().block_step_chunks(d, ntype, nto, nslots, int(onsite),
+                                     int(gram))
+    if n < 1:
+        raise ValueError(f"block_step: {ntype} types of width {d} do not "
+                         f"fit shared memory")
+    return n
 
 
 # ----------------------------------------------------------------------
@@ -144,23 +177,27 @@ def block_step(tab, iz, cols, x, onsite=None, izo=None, p=None, add=None,
     _check(iz, "iz", torch.int32, (kk,), dev)
     _check(cols, "cols", torch.int32, (kk, nslots), dev)
     _check(x, "x", z, (kk + 1, d, c), dev)
+    nto = 0
     if onsite is not None:
-        _check(onsite, "onsite", z, (onsite.shape[0], d, d), dev)
+        nto = onsite.shape[0]
+        _check(onsite, "onsite", z, (nto, d, d), dev)
         _check(izo, "izo", torch.int32, (kk,), dev)
     if p is not None:
         _check(p, "p", z, (kk + 1, d, c), dev)
     if add is not None:
         _check(add, "add", z, (kk, d, c), dev)
     lib = _library()
+    packed = packed_table(tab, pack_table)
+    packed_on = None if onsite is None else packed_table(onsite, pack_onsite)
     y = torch.empty((kk + pad, d, c), dtype=z, device=dev)
     g = (torch.empty((nrowblk(kk, d), c // d, d, d), dtype=z, device=dev)
          if gram else None)
     opt = lambda t: None if t is None else _ptr(t)  # noqa: E731
     with torch.cuda.device(dev):
         err = lib.block_step(
-            d, _ptr(tab), _ptr(iz), _ptr(cols), _ptr(x), opt(onsite),
-            opt(izo), opt(p), opt(add), _ptr(y), opt(g), nslots, kk,
-            int(pad), c, _stream(dev))
+            d, _ptr(packed), _ptr(iz), _ptr(cols), _ptr(x), opt(packed_on),
+            opt(izo), opt(p), opt(add), _ptr(y), opt(g), ntype, nto, nslots,
+            kk, int(pad), c, _stream(dev))
     _raise_on(err, "block_step")
     block_step.launches += 1
     return y, g

@@ -7,7 +7,8 @@ Port of ``rslmtoasa_tpu/ops/chebyshev.py`` (reference ``recursion.f90``
 recursion's operator (:class:`~.block_lanczos.BlockOperator`, kernel K4);
 the scaling ``H~ = (H - b)/a`` with a = (emax - emin)/(2 - 0.3),
 b = (emax + emin)/2, the three-term update and the Grams are torch ops on
-``psi``'s device.  The Green function is NumPy on the host.
+``psi``'s device.  The Green function is torch on the device its caller
+names, batched over the rec atoms.
 """
 
 from __future__ import annotations
@@ -62,25 +63,29 @@ def lorentz_kernel(n: int, lam: float = 4.0) -> np.ndarray:
 
 
 def chebyshev_green(mu: np.ndarray, ene: np.ndarray, emin: float,
-                    emax: float) -> np.ndarray:
-    """Onsite Green function from block moments.
+                    emax: float, device) -> np.ndarray:
+    """Onsite Green functions of all rec atoms from block moments, computed
+    on ``device`` (``green.f90 chebyshev_green`` :1030-1115).
 
-    mu: (nmom, 18, 18) for one atom; returns g0 (18, 18, NE)
-    (``green.f90 chebyshev_green`` :1030-1115).
+    mu: (nmom, R, 18, 18); returns g0 (R, 18, 18, NE) complex128 on the
+    host.
     """
+    dev = torch.device(device)
     nmom = mu.shape[0]
     a = (emax - emin) / (2.0 - 0.3)
     b = (emax + emin) / 2.0
-    w = (ene - b) / a  # (NE,)
-    kern = jackson_kernel(nmom)
-    mu_ng = mu * kern[:, None, None]
+    e = torch.as_tensor(np.ascontiguousarray(ene), dtype=torch.float64,
+                        device=dev)
+    kern = torch.as_tensor(jackson_kernel(nmom), device=dev)
+    mu_ng = torch.as_tensor(np.ascontiguousarray(mu), dtype=torch.complex128,
+                            device=dev) * kern[:, None, None, None]
     mu_ng[1:] *= 2.0
-    n_idx = np.arange(nmom)
+    n_idx = torch.arange(nmom, dtype=torch.float64, device=dev)
     # exp factor: -i exp(-i n arccos(w)), (NE, nmom)
-    acw = np.arccos(np.clip(w, -1.0, 1.0))
+    acw = torch.arccos(torch.clamp((e - b) / a, -1.0, 1.0))
     # the reference computes arccos without clipping; |w| stays < 1 by the
     # (2 - 0.3) scaling margin, so the clip is inert on valid meshes
-    expf = -1j * np.exp(-1j * n_idx[None, :] * acw[:, None])
-    g0 = np.einsum("en,nab->abe", expf, mu_ng)
-    g0 /= np.sqrt(a**2 - (ene - b) ** 2)[None, None, :]
-    return g0
+    expf = -1j * torch.exp(-1j * n_idx[None, :] * acw[:, None])
+    g0 = torch.einsum("en,nrab->rabe", expf, mu_ng)
+    g0 = g0 / torch.sqrt(a**2 - (e - b) ** 2)
+    return g0.cpu().numpy()

@@ -130,25 +130,27 @@ def nquads(nslots: int) -> int:
 
 
 def pack_table(hs: torch.Tensor) -> torch.Tensor:
-    """The type table realified and cut into ``mma.m16n8k8`` B fragments.
+    """The type table (ntype, nslots, d, d) realified and cut into
+    ``mma.m16n8k8`` B fragments (d = 9 here, 9 or 18 for K4).
 
-    Returns (ntype, nquad, NTILE, 32, 2) float64: entry ``[ty, j, nt,
-    lane]`` is the pair (b0, b1) that lane ``lane = 4 g + t`` holds for
-    quad j and n-tile nt.  Quad j takes the complex inputs q = 4 j + t,
-    input q being orbital ``q % 9`` of slot ``q // 9``; b0 weighs its
-    real part, b1 its imaginary part, into real output n = 8 nt + g, which
-    is orbital ``n // 2``, real part for even n.  That is the realified
-    block [[Hr, -Hi], [Hi, Hr]].  Padding (q >= 9 nslots, orbital >= 9)
-    is zero."""
-    ntype, nslots = hs.shape[:2]
+    Returns (ntype, nquad, NT, 32, 2) float64, nquad = ceil(d nslots / 4),
+    NT = ceil(2 d / 8): entry ``[ty, j, nt, lane]`` is the pair (b0, b1)
+    that lane ``lane = 4 g + t`` holds for quad j and n-tile nt.  Quad j
+    takes the complex inputs q = 4 j + t, input q being orbital ``q % d``
+    of slot ``q // d``; b0 weighs its real part, b1 its imaginary part,
+    into real output n = 8 nt + g, which is orbital ``n // 2``, real part
+    for even n.  That is the realified block [[Hr, -Hi], [Hi, Hr]].
+    Padding (q >= d nslots, orbital >= d) is zero."""
+    ntype, nslots, d = hs.shape[0], hs.shape[1], hs.shape[-1]
     dev = hs.device
     lane = torch.arange(32, device=dev)
     g, t = lane // 4, lane % 4
-    q = QUAD * torch.arange(nquads(nslots), device=dev)[:, None, None] + t
-    n = 8 * torch.arange(NTILE, device=dev)[None, :, None] + g
-    m, b, a, ro = q // NORB, q % NORB, n // 2, n % 2
-    valid = (q < NORB * nslots) & (a < NORB)  # (nquad, NTILE, 32)
-    h = hs[:, m.clamp(max=nslots - 1), a.clamp(max=NORB - 1), b]
+    nquad, ntile = -(-d * nslots // QUAD), -(-2 * d // 8)
+    q = QUAD * torch.arange(nquad, device=dev)[:, None, None] + t
+    n = 8 * torch.arange(ntile, device=dev)[None, :, None] + g
+    m, b, a, ro = q // d, q % d, n // 2, n % 2
+    valid = (q < d * nslots) & (a < d)  # (nquad, NT, 32)
+    h = hs[:, m.clamp(max=nslots - 1), a.clamp(max=d - 1), b]
     b0 = torch.where(ro == 0, h.real, h.imag)
     b1 = torch.where(ro == 0, -h.imag, h.real)
     tab = torch.stack([b0, b1], -1)
@@ -158,19 +160,20 @@ def pack_table(hs: torch.Tensor) -> torch.Tensor:
 _TABLES: dict = {}
 
 
-def packed_table(hs: torch.Tensor) -> torch.Tensor:
-    """:func:`pack_table` of ``hs`` on its device, built once and cached
-    while ``hs`` lives unchanged (the recursion passes the same ``hs`` at
-    every step)."""
-    hit = _TABLES.get(id(hs))
+def packed_table(hs: torch.Tensor, pack=pack_table) -> torch.Tensor:
+    """``pack(hs)`` on its device (:func:`pack_table` by default), built
+    once and cached while ``hs`` lives unchanged (the recursion passes the
+    same ``hs`` at every step)."""
+    key = (id(hs), pack)
+    hit = _TABLES.get(key)
     if hit is not None:
         ref, ver, table = hit
         if ref() is hs and ver == hs._version:
             return table
-    table = pack_table(hs)
+    table = pack(hs)
     if len(_TABLES) >= 8:
         _TABLES.clear()
-    _TABLES[id(hs)] = (weakref.ref(hs), hs._version, table)
+    _TABLES[key] = (weakref.ref(hs), hs._version, table)
     return table
 
 
@@ -178,15 +181,15 @@ def spmv_packed_ref(table: torch.Tensor, iz: torch.Tensor,
                     cols: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
     """``y = H psi`` through the packed table, as the kernels' fragments
     combine it: the gathered inputs cut in quads, times the B fragments of
-    each row's type, summed over quads and lanes t."""
+    each row's type, summed over quads and lanes t.  (kk, d, C)."""
     kk, nslots = cols.shape
-    c = psi.shape[2]
-    ntype, nquad = table.shape[:2]
-    x = psi[cols.long()].reshape(kk, nslots * NORB, c)
-    x = torch.cat([x, x.new_zeros(kk, QUAD * nquad - nslots * NORB, c)], 1)
+    d, c = psi.shape[1], psi.shape[2]
+    ntype, nquad, ntile = table.shape[:3]
+    x = psi[cols.long()].reshape(kk, nslots * d, c)
+    x = torch.cat([x, x.new_zeros(kk, QUAD * nquad - nslots * d, c)], 1)
     x = x.view(kk, nquad, QUAD, c)
-    tab = table.view(ntype, nquad, NTILE, 8, QUAD, 2)  # [.., nt, g, t, half]
-    out = torch.zeros((kk, NTILE, 8, c), dtype=torch.float64,
+    tab = table.view(ntype, nquad, ntile, 8, QUAD, 2)  # [.., nt, g, t, half]
+    out = torch.zeros((kk, ntile, 8, c), dtype=torch.float64,
                       device=psi.device)
     iz = iz.long()
     for ty in range(ntype):
@@ -195,7 +198,7 @@ def spmv_packed_ref(table: torch.Tensor, iz: torch.Tensor,
         out[rows] = (torch.einsum("rjtc,jngt->rngc", xr.real, tab[ty, ..., 0])
                      + torch.einsum("rjtc,jngt->rngc", xr.imag,
                                     tab[ty, ..., 1]))
-    out = out.reshape(kk, NTILE * 8, c)[:, :2 * NORB].view(kk, NORB, 2, c)
+    out = out.reshape(kk, ntile * 8, c)[:, :2 * d].view(kk, d, 2, c)
     return torch.complex(out[:, :, 0], out[:, :, 1])
 
 

@@ -8,8 +8,10 @@ Implements the block path of ``source/green.f90``:
   ``get_cinf`` :2030-2092),
 * :func:`bgreen` — per-energy matrix continued fraction with the
   orbital-dependent square-root terminator (``green.f90 bgreen``
-  :1191-1339): a chain of 18x18 LU inversions evaluated batched over all
-  energies.
+  :1191-1339): a chain of 18x18 inversions, each level one batched torch
+  inverse over all rec atoms and energies on the recursion's device.
+
+The terminator fits stay NumPy on the host (324 R scalar fits).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from ..ops.terminator import bpopt_batch
 
@@ -56,52 +59,58 @@ def get_terminf(a_b: np.ndarray, b_b: np.ndarray
 
 
 def bgreen(a_b: np.ndarray, b_b: np.ndarray, a_inf: np.ndarray,
-           b_inf: np.ndarray, ene: np.ndarray, sym_term: bool = False
-           ) -> np.ndarray:
-    """Matrix continued-fraction onsite Green function for one atom.
+           b_inf: np.ndarray, ene: np.ndarray, device,
+           sym_term: bool = False) -> np.ndarray:
+    """Matrix continued-fraction onsite Green functions of all rec atoms,
+    computed on ``device``.
 
-    a_b, b_b: (lld, 18, 18) block coefficients (b_b = sqrt(B^2));
-    a_inf/b_inf: (18, 18) terminators; ene: (NE,).
-    Returns g0 (18, 18, NE) complex.
+    a_b, b_b: (lld, R, 18, 18) block coefficients (b_b = sqrt(B^2));
+    a_inf/b_inf: (R, 18, 18) terminators; ene: (NE,).  The inputs go to
+    ``device`` once; each level of the fraction is one batched inverse over
+    (R, NE), its ``info`` checked once after the loop.  Returns g0
+    (R, 18, 18, NE) complex128 on the host.
     """
-    lld = a_b.shape[0]
-    ldim = a_b.shape[1]
-    ne = ene.shape[0]
-    e = ene[:, None]  # (NE, 1) for diag broadcasting
+    dev = torch.device(device)
+    z = torch.complex128
+    as_dev = lambda x, dt: torch.tensor(  # noqa: E731
+        np.asarray(x), dtype=dt, device=dev)
+    lld, ldim = a_b.shape[0], a_b.shape[2]
+    a_b, b_b = as_dev(a_b, z), as_dev(b_b, z)
+    a_inf = as_dev(a_inf, torch.float64)
+    b_inf = as_dev(b_inf, torch.float64)
+    e = as_dev(ene, torch.float64)[None, :, None]  # (1, NE, 1)
 
     # ---- terminator initialisation (orbital-diagonal) ----------------
-    q = np.zeros((ne, ldim, ldim), dtype=np.complex128)
-    diag = np.arange(ldim)
-    ai = np.diag(a_inf).copy()
-    bi = np.diag(b_inf).copy()
     if sym_term:
-        a_d = 0.5 * (a_inf[0, 0] + a_inf[9, 9])
-        b_d = 0.5 * (b_inf[0, 0] + b_inf[9, 9])
-        etop = np.full(ldim, a_d + 2.0 * b_d)
-        ebot = np.full(ldim, a_d - 2.0 * b_d)
-        det = (e - etop[None, :]) * (e - ebot[None, :])
-        zoff = np.sqrt(det.astype(np.complex128))
-        q[:, diag, diag] = (e - a_d - zoff) * 0.5
+        a_d = (0.5 * (a_inf[:, 0, 0] + a_inf[:, 9, 9]))[:, None, None]
+        b_d = (0.5 * (b_inf[:, 0, 0] + b_inf[:, 9, 9]))[:, None, None]
+        det = (e - (a_d + 2.0 * b_d)) * (e - (a_d - 2.0 * b_d))
+        zoff = torch.sqrt(det.to(z))
+        diag = ((e - a_d - zoff) * 0.5).expand(-1, -1, ldim)
     else:
-        widen = np.ones(ldim)
+        widen = torch.ones(ldim, dtype=torch.float64, device=dev)
         widen[0] = 1.025  # s-orbitals widened (bgreen :1296-1304)
         widen[9] = 1.025
-        etop = ai + 2.0 * bi * widen
-        ebot = ai - 2.0 * bi * widen
-        det = (e - etop[None, :]) * (e - ebot[None, :])
-        zoff = np.sqrt(det.astype(np.complex128))
-        q[:, diag, diag] = (e - ai[None, :] - zoff) * 0.5
+        # (R, 1, 18)
+        ai = torch.diagonal(a_inf, dim1=-2, dim2=-1)[:, None, :]
+        bi = torch.diagonal(b_inf, dim1=-2, dim2=-1)[:, None, :]
+        det = (e - (ai + 2.0 * bi * widen)) * (e - (ai - 2.0 * bi * widen))
+        zoff = torch.sqrt(det.to(z))
+        diag = (e - ai - zoff) * 0.5
+    q = torch.diag_embed(diag)  # (R, NE, 18, 18)
 
     # ---- continued fraction down the chain ---------------------------
-    z = np.zeros((ldim, ldim))
-    np.fill_diagonal(z, 1.0)
+    eye = e[..., None] * torch.eye(ldim, dtype=torch.float64, device=dev)
+    failed = torch.zeros((), dtype=torch.bool, device=dev)
     for l in range(lld - 2, -1, -1):
         # small-Q zeroing (bgreen :1315-1317)
-        small = (np.abs(q.real) < 1e-12) & (np.abs(q.imag) < 1e-12)
-        q[small] = 0.0
-        p = e[:, :, None] * z[None, :, :]  # (NE, 18, 18) = E*I
-        q = p - a_b[l][None, :, :] - q
-        qinv = np.linalg.inv(q)
-        b2z = b_b[l]
-        q = b2z.conj().T @ qinv @ b2z
-    return q.transpose(1, 2, 0)  # (18, 18, NE)
+        small = (q.real.abs() < 1e-12) & (q.imag.abs() < 1e-12)
+        q = torch.where(small, 0.0, q)
+        qinv, info = torch.linalg.inv_ex(eye - a_b[l][:, None] - q)
+        failed |= (info != 0).any()
+        b2z = b_b[l][:, None]
+        q = b2z.conj().transpose(-1, -2) @ qinv @ b2z
+    if bool(failed):
+        raise np.linalg.LinAlgError("bgreen: a continued-fraction level is "
+                                    "singular")
+    return q.permute(0, 2, 3, 1).cpu().numpy()  # (R, 18, 18, NE)

@@ -15,8 +15,12 @@ package's (CPU).
   -2542.08016980097 (B2), -2542.088588337106 (bcc nsp=1 block, spin
   sectors), -2542.4144178647666 (bcc Chebyshev, window (-1.5, 1.0)); the
   test recomputes them.
-* ``local_axis``, both command-line drivers, the Green functions, and the
-  collinear spin-sector split.
+* K4's packed tables (the kernel's B fragments) against the plain
+  products.
+* ``local_axis``, both command-line drivers, the Green functions (torch,
+  batched over rec atoms, against the JAX package's NumPy ones; no NumPy
+  inverse left in an SCF iteration), the start blocks' cache across a
+  change of device, and the collinear spin-sector split.
 """
 
 import os
@@ -48,6 +52,7 @@ from rslmtoasa_tpu_torch.models.scf import SelfConsistency
 from rslmtoasa_tpu_torch.ops import block_kernels as bk
 from rslmtoasa_tpu_torch.ops import block_lanczos as pbl
 from rslmtoasa_tpu_torch.ops import chebyshev as pch
+from rslmtoasa_tpu_torch.ops import haydock_kernels as hk
 from rslmtoasa_tpu_torch.parallel import dispatch as pdispatch
 from rslmtoasa_tpu_torch.physics import greens as pgreens
 from test_torch_scf import NUM, _assert_files_close, _input_text
@@ -56,6 +61,21 @@ CPU = torch.device("cpu")
 BCC = dict(rc=8.0, ndim=2000, lld=8)
 NSTEP = 2
 WINDOW = (-1.5, 1.0)  # the Chebyshev window in which the moments converge
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The suite runs in several pytest-xdist worker processes at once.
+    With torch's default of one intra-op thread per core in each of them,
+    the Green functions' batched CPU inverses oversubscribe the cores:
+    three concurrent block SCF tests took over ten times as long as one.
+    One thread while this module's tests and fixtures run (an autouse
+    fixture comes before the other fixtures of its scope) keeps their time
+    as it is alone; the old count comes back after them."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 def _tensor(a):
@@ -116,6 +136,39 @@ def test_block_step_matches_jax_ops(d, ntype, hoh):
                              _tensor(pbl.port_layout(psi)), pad=True)
     assert none is None and yp.shape == (kk + 1, d, r * d)
     assert not yp[kk].any()
+
+
+@pytest.mark.parametrize("ntype", [1, 2])
+@pytest.mark.parametrize("d", [9, 18])
+def test_block_packed_tables_match_plain(d, ntype):
+    """K4's packed B fragments (type table and onsite table as one slot),
+    combined as the kernel's MMAs combine them, give the plain SpMV and
+    onsite products within 1e-13 of scale; padding is zero."""
+    rng = np.random.default_rng(7 * d + ntype)
+    kk, nslots, c = 29, 15, 2 * d
+    hs = _tensor(_rand(rng, ntype, nslots, d, d))
+    onsite = _tensor(_rand(rng, ntype, d, d))
+    iz = torch.from_numpy(rng.integers(0, ntype, kk).astype(np.int32))
+    cols = torch.from_numpy(
+        rng.integers(0, kk + 1, (kk, nslots)).astype(np.int32))
+    x = _tensor(_rand(rng, kk + 1, d, c))
+    x[kk] = 0.0
+    table = bk.pack_table(hs)
+    nq, ntile = (68, 5) if d == 18 else (34, 3)
+    assert table.shape == (ntype, nq, ntile, 32, 2)
+    want = bk.block_spmv(hs, iz, cols, x)
+    got = hk.spmv_packed_ref(table, iz, cols, x)
+    assert (got - want).abs().max() <= 1e-13 * want.abs().max()
+    self_cols = torch.arange(kk, dtype=torch.int32)[:, None]
+    want = torch.einsum("iab,ibc->iac", onsite[iz.long()], x[:kk])
+    got = hk.spmv_packed_ref(bk.pack_onsite(onsite), iz, self_cols, x)
+    assert (got - want).abs().max() <= 1e-13 * want.abs().max()
+    # the realified rows past 2d and the inputs past d nslots weigh nothing
+    lane = torch.arange(32)
+    n = 8 * torch.arange(ntile)[:, None] + lane // 4
+    assert not table[:, :, n >= 2 * d].any()
+    q = 4 * torch.arange(nq)[:, None] + lane % 4
+    assert not table.permute(0, 1, 3, 2, 4)[:, q >= d * nslots].any()
 
 
 # ----------------------------------------------------------------------
@@ -368,30 +421,62 @@ def test_zsqr_and_terminators_match_jax(coefficients):
         assert np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("nrec", [1, 2])
 @pytest.mark.parametrize("sym_term", [False, True])
-def test_bgreen_matches_jax(coefficients, sym_term):
+def test_bgreen_matches_jax(coefficients, sym_term, nrec):
+    """The port's batched bgreen (all rec atoms at once, torch on the CPU)
+    against the JAX package's, one atom at a time: 1e-12 of scale."""
     a_b, b2_b, _ = coefficients
+    a_b, b2_b = a_b[:, :nrec], b2_b[:, :nrec]
     b_b = jbl.zsqr(b2_b)
     a_inf, b_inf = jgreens.get_terminf(a_b, b_b)
     ene = np.linspace(-1.0, 0.5, 301)
-    for n in range(a_b.shape[1]):
-        got = pgreens.bgreen(a_b[:, n], b_b[:, n], a_inf[n], b_inf[n], ene,
-                             sym_term=sym_term)
+    got = pgreens.bgreen(a_b, b_b, a_inf, b_inf, ene, CPU, sym_term=sym_term)
+    assert got.shape == (nrec, 18, 18, 301)
+    for n in range(nrec):
         want = jgreens.bgreen(a_b[:, n], b_b[:, n], a_inf[n], b_inf[n], ene,
                               sym_term=sym_term)
-        assert got.shape == (18, 18, 301)
-        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+        assert np.abs(got[n] - want).max() <= 1e-12 * np.abs(want).max()
 
 
-def test_chebyshev_green_matches_jax(coefficients):
-    mu = coefficients[2]
+@pytest.mark.parametrize("nrec", [1, 2])
+def test_chebyshev_green_matches_jax(coefficients, nrec):
+    mu = coefficients[2][:, :nrec]
     ene = np.linspace(WINDOW[0] + 0.1, WINDOW[1] - 0.1, 301)
-    for n in range(mu.shape[1]):
-        got = pch.chebyshev_green(mu[:, n], ene, *WINDOW)
+    got = pch.chebyshev_green(mu, ene, *WINDOW, CPU)
+    assert got.shape == (nrec, 18, 18, 301)
+    for n in range(nrec):
         want = jch.chebyshev_green(mu[:, n], ene, *WINDOW)
-        assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max()
+        assert np.abs(got[n] - want).max() <= 1e-13 * np.abs(want).max()
     assert np.array_equal(pch.jackson_kernel(17), jch.jackson_kernel(17))
     assert np.array_equal(pch.lorentz_kernel(17), jch.lorentz_kernel(17))
+
+
+@pytest.mark.parametrize("recur", ["block", "chebyshev"])
+def test_dos_phase_inverts_in_torch(monkeypatch, tmp_path, recur):
+    """One block (or Chebyshev) SCF iteration with NumPy's inverse made to
+    raise: the Green function runs as torch on the recursion's device."""
+    def refuse(*args, **kw):
+        raise AssertionError("np.linalg.inv called")
+
+    monkeypatch.setattr(np.linalg, "inv", refuse)
+    sys_ = _make("torch", "bcc-chebyshev" if recur == "chebyshev"
+                 else "bcc-block")
+    state = SelfConsistency(sys_, workdir=str(tmp_path)).run(nstep=1)
+    assert state.niter == 1 and np.isfinite(sys_.atoms[0].potential.etot)
+
+
+def test_start_blocks_follow_the_device():
+    """The cached start blocks are made again when the system's device
+    changes, as when a copy of an SCF runs its next iteration on another
+    device."""
+    sys_ = build_synthetic_bcc(device="cpu", nsp=2, **BCC)
+    kk, atoms = sys_.cluster.kk, [int(j) - 1 for j in sys_.cluster.irec]
+    psi0 = sys_._cached_psi0(kk, atoms)
+    assert sys_._cached_psi0(kk, atoms) is psi0
+    sys_.device = torch.device("meta")
+    moved = sys_._cached_psi0(kk, atoms)
+    assert moved.device.type == "meta" and moved.shape == psi0.shape
 
 
 # ----------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """The CUDA kernels (Haydock K1'-K3', block step K4) against their plain
-versions, on the card.
+versions, and the Green functions against the same torch code on the CPU,
+on the card.
 
 Marked ``gpu``: without a CUDA card every test skips (the check is made
 in the fixture, never at import).  On a machine with one, run
@@ -21,13 +22,18 @@ from rslmtoasa_tpu_torch.ops.block_lanczos import (
     BlockOperator,
     block_lanczos,
     block_start_vectors,
+    zsqr,
 )
-from rslmtoasa_tpu_torch.ops.chebyshev import chebyshev_moments
+from rslmtoasa_tpu_torch.ops.chebyshev import (
+    chebyshev_green,
+    chebyshev_moments,
+)
 from rslmtoasa_tpu_torch.ops.lanczos import (
     HaydockOperator,
     lanczos_coefficients,
     scalar_start_vectors,
 )
+from rslmtoasa_tpu_torch.physics.greens import bgreen, get_terminf
 
 pytestmark = pytest.mark.gpu
 BAR = 1e-12
@@ -243,6 +249,30 @@ def test_block_step_kernel_on_b2(card):
     _k4_matches_plain(op, _blocks(op.kk, 18, 2, 9, card))
 
 
+def test_block_step_kernel_reruns_bit_identical(block_system, card):
+    """d = 18 with the onsite term and the Gram: five launches give the
+    same bits, and the table stays whole in shared memory (one chunk)."""
+    op = _block_operator(block_system, 18, False, card)
+    psi = _blocks(op.kk, 18, 1, 14, card)
+    assert bk.chunks(18, 1, 1, op.cols.shape[1], True, True) == 1
+    y, g = op(psi, gram=True)
+    for _ in range(4):
+        y1, g1 = op(psi, gram=True)
+        assert torch.equal(y, y1) and torch.equal(g, g1)
+
+
+def test_block_step_chunks_two_types_at_d18(card):
+    """Two types of width 18 do not fit shared memory together: the kernel
+    walks the slot quads in chunks, and matches its plain version."""
+    sys_ = build_synthetic_b2(rc=8.0, nsp=2, device="cpu")
+    hb = sys_.ham
+    op = BlockOperator(hb.ee, hb.iz, hb.cols, hb.lsham).to(card)
+    nslots = op.cols.shape[1]
+    assert bk.chunks(18, 2, 2, nslots, True, True) > 1
+    assert bk.chunks(9, 2, 2, nslots, True, True) == 1
+    _k4_matches_plain(op, _blocks(op.kk, 18, 1, 15, card))
+
+
 def test_block_step_kernel_pads_and_adds(block_system, card):
     """The HoH step's first launch: y with a zero row kk, no onsite, add or
     Gram; then add alone."""
@@ -279,3 +309,38 @@ def test_block_recursions_match_plain(block_system, card, hoh):
     assert bk.block_step.launches - n == per * (lld + 1)
     mu0 = chebyshev_moments(op, psi0, lld, 2.5 / 1.7, -0.25, plain=True)
     assert (mu - mu0).abs().max() <= 1e-11
+
+
+# ----------------------------------------------------------------------
+# the Green functions on the card
+@pytest.fixture(scope="module")
+def b2_coefficients(card):
+    """(a_b, b_b, a_inf, b_inf, mu) of the B2 preset's two start blocks."""
+    sys_ = build_synthetic_b2(rc=8.0, nsp=2, device="cpu")
+    hb = sys_.ham
+    op = BlockOperator(hb.ee, hb.iz, hb.cols, hb.lsham)
+    psi0 = block_start_vectors(op.kk, [0, 1], torch.device("cpu"))
+    a_b, b2_b = (t.numpy() for t in block_lanczos(op, psi0, 8))
+    b_b = zsqr(b2_b)
+    a_inf, b_inf = get_terminf(a_b, b_b)
+    mu = chebyshev_moments(op, psi0, 8, 2.5 / 1.7, -0.25).numpy()
+    return a_b, b_b, a_inf, b_inf, mu
+
+
+@pytest.mark.parametrize("sym_term", [False, True])
+def test_bgreen_on_card_matches_cpu(b2_coefficients, card, sym_term):
+    a_b, b_b, a_inf, b_inf, _ = b2_coefficients
+    ene = np.linspace(-1.0, 0.5, 301)
+    got = bgreen(a_b, b_b, a_inf, b_inf, ene, card, sym_term=sym_term)
+    want = bgreen(a_b, b_b, a_inf, b_inf, ene, "cpu", sym_term=sym_term)
+    assert got.shape == want.shape == (2, 18, 18, 301)
+    assert np.abs(got - want).max() <= BAR * np.abs(want).max()
+
+
+def test_chebyshev_green_on_card_matches_cpu(b2_coefficients, card):
+    mu = b2_coefficients[4]
+    ene = np.linspace(-1.4, 0.9, 301)
+    got = chebyshev_green(mu, ene, -1.5, 1.0, card)
+    want = chebyshev_green(mu, ene, -1.5, 1.0, "cpu")
+    assert got.shape == want.shape == (2, 18, 18, 301)
+    assert np.abs(got - want).max() <= BAR * np.abs(want).max()
