@@ -67,6 +67,20 @@ code is then non-zero):
    nstep * (lld - 1) times per H application (twice that with HoH),
    nstep * (lld + 1) for Chebyshev, and K1'-K3' never; with the wall per
    iteration and its split over the timer sections.
+8. surface and impurity: a bcc(001) slab (``rc=340``, kk = 27798, four
+   types) and the bcc host with three impurities (``rc=220``, kk = 27316,
+   a local zone of 60 atoms: 64 row types in the combined table), three
+   start blocks each: K4 against its plain version (d = 18 with both HoH
+   launches, d = 9), timed beside its bound, ``torch.sparse.mm`` of the
+   same H and the box-30 K4 of phase 6; then 2-iteration block (``hoh``
+   False and True) and Chebyshev SCFs of each, ``nsp=2``, lld 12, K4
+   against ``plain=True`` on the card and at ``rc=12`` (300 energy
+   points) the card against the CPU,
+   held as phase 7 holds them, except that an etot miss passes, listed as
+   unmet, where the atomic-sphere solver explains it (its inputs of the
+   two runs within the ql bar, and the solver on got's inputs repeating
+   got's etot), also after one iteration; the seconds per iteration of
+   every timer section, ``madelung-surface`` among them.
 
 All kernel sources build at once in phase 1, one nvcc each.
 
@@ -92,14 +106,25 @@ import torch
 
 PRESET = dict(rc=120.0, ndim=1_000_000, lld=20, box=30)
 NSTEP = 2
+# K4's forms on the slab (the chunked route) and on the impurity's
+# combined table (the local zone's route), phase 8
+K4_FORMS = ("block_step[surface]", "block_step[impurity]")
 SOURCES = {"spmv_dot": "rslmtoasa_tpu_torch/csrc/haydock.cu",
            "spmv_dot_pipelined": "rslmtoasa_tpu_torch/csrc/haydock.cu",
            "update_norm": "rslmtoasa_tpu_torch/csrc/haydock.cu",
-           "block_step": "rslmtoasa_tpu_torch/csrc/block_step.cu"}
+           **{n: "rslmtoasa_tpu_torch/csrc/block_step.cu"
+              for n in ("block_step",) + K4_FORMS}}
 REPLACES = {"spmv_dot": "rslmtoasa_tpu/ops/pallas_conv.py:185",
             "spmv_dot_pipelined": "rslmtoasa_tpu/ops/pallas_conv.py:352",
             "update_norm": "rslmtoasa_tpu/ops/pallas_conv.py:551",
-            "block_step": "rslmtoasa_tpu/ops/block_lanczos.py:27"}
+            **{n: "rslmtoasa_tpu/ops/block_lanczos.py:27"
+               for n in ("block_step",) + K4_FORMS}}
+# phase 8: the slab and the impurity at full width, and at a small size
+# for the card against the CPU
+EMBEDDED = {"surface": dict(rc=340.0), "impurity": dict(rc=220.0)}
+EMBEDDED_SMALL = 12.0
+EMBEDDED_SMALL_NE = 300  # energy points of the small runs (the CPU's inverses)
+EMB_LLD = 12
 # the block and Chebyshev SCFs of phase 7
 BLOCK_CASES = {"block": dict(recur="block", hoh=False),
                "block-hoh": dict(recur="block", hoh=True),
@@ -250,17 +275,18 @@ def spmv_parity(hk, op, psi, what, records):
     return errs, dy, da
 
 
-def k4_check(bk, op, psi, what, records):
+def k4_check(bk, op, psi, what, records, name="block_step"):
     """K4 (through the operator: one launch, two with HoH) against its
     plain version: y, the Gram partials and their sum within 1e-12 of
     scale, with HoH the first launch alone too; a rerun bit-identical.
-    Returns the largest error."""
+    Returns the largest error, also kept in ``records[name]``."""
     y, g = op(psi, gram=True)
     y0, g0 = op(psi, gram=True, plain=True)
     y1, g1 = op(psi, gram=True)
     pairs = [(y, y0), (g, g0), (g.sum(0), g0.sum(0))]
     if op.hoh:
-        pairs.append((bk.block_step(op.hs, op.iz, op.cols, psi, pad=True)[0],
+        pairs.append((bk.block_step(op.hs, op.iz, op.cols, psi, pad=True,
+                                    zone=op.zone())[0],
                       bk.block_step_ref(op.hs, op.iz, op.cols, psi,
                                         pad=True)[0]))
     torch.cuda.synchronize()
@@ -271,7 +297,7 @@ def k4_check(bk, op, psi, what, records):
         err = max(err, e)
     check(torch.equal(y, y1) and torch.equal(g, g1),
           f"block_step reruns bit-identical, {what}")
-    rec = records["block_step"]
+    rec = records[name]
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
     return err
 
@@ -297,7 +323,15 @@ def scalars(scf, sys_):
                 mom=np.array(pot.mom))
 
 
-def scf_once(scf_cls, sys_, wrappers, g_timer, nstep=NSTEP):
+def rec_scalars(scf, sys_):
+    """:func:`scalars` of every rec atom's species, stacked."""
+    pots = [sys_.atoms[i].potential for i in scf.iz_rec]
+    return dict(etot=np.array([p.etot for p in pots]), fermi=scf.fermi,
+                ql=np.array([p.ql for p in pots]),
+                mom=np.array([p.mom for p in pots]))
+
+
+def scf_once(scf_cls, sys_, wrappers, g_timer, nstep=NSTEP, read=scalars):
     """An ``nstep``-iteration SCF of ``sys_`` in a scratch directory: its
     scalars after the last iteration and, under ``first``, after the
     first (one ``run(nstep=1)`` per iteration, which gives the same bits as
@@ -317,10 +351,10 @@ def scf_once(scf_cls, sys_, wrappers, g_timer, nstep=NSTEP):
             state = scf.run(nstep=1)
             wall += time.perf_counter() - t0
             niter += state.niter
-            first = first or scalars(scf, sys_)
+            first = first or read(scf, sys_)
         launches = {n: fn.launches for n, fn in wrappers.items()}
-    out = scalars(scf, sys_)
-    check(niter == nstep and np.isfinite(out["etot"])
+    out = read(scf, sys_)
+    check(niter == nstep and np.isfinite(out["etot"]).all()
           and np.isfinite(out["ql"]).all(), "SCF finished")
     spent = {k: v - before.get(k, 0.0)
              for k, v in section_totals(g_timer).items()}
@@ -361,7 +395,7 @@ def solver_tail(native, kw, etot):
     return limit, float(np.ptp([*last, etot]))
 
 
-def second_iteration(snap, device, plain, wrappers):
+def second_iteration(snap, device, plain, wrappers, read=scalars):
     """The second iteration of the SCF copied in ``snap`` after its first,
     run on another engine (``device``, ``plain``): its scalars and kernel
     launches."""
@@ -373,15 +407,236 @@ def second_iteration(snap, device, plain, wrappers):
             fn.launches = 0
         scf.run(nstep=1)
         launches = {n: fn.launches for n, fn in wrappers.items()}
-    return dict(scalars(scf, scf.sys), launches=launches)
+    return dict(read(scf, scf.sys), launches=launches)
 
 
 def scf_diffs(got, ref):
-    """|got - ref| of the SCF scalars (the largest entry of ql and mom)."""
-    return dict(etot=abs(got["etot"] - ref["etot"]),
+    """|got - ref| of the SCF scalars (the largest entry of ql and mom, and
+    of etot over rec atoms)."""
+    return dict(etot=float(np.abs(got["etot"] - ref["etot"]).max()),
                 fermi=abs(got["fermi"] - ref["fermi"]),
                 ql=float(np.abs(got["ql"] - ref["ql"]).max()),
                 mom=float(np.abs(got["mom"] - ref["mom"]).max()))
+
+
+def solver_explains(native, got_calls, ref_calls, got_etot):
+    """Whether an etot difference between two SCF iterations is the
+    atomic-sphere solver's own: each rec atom's solver inputs (ql, pl) of
+    the two runs agree within the ql bar, and the solver run again on
+    got's inputs repeats got's etot.  Returns (bool, the inputs' largest
+    difference)."""
+    gap = max(float(np.abs(np.asarray(g[k]) - np.asarray(r[k])).max())
+              for g, r in zip(got_calls, ref_calls) for k in ("ql", "pl"))
+    again = [native.atomsc_native(**kw).etot for kw in got_calls]
+    return (len(got_calls) == len(ref_calls) and gap <= SCF_BARS["ql"]
+            and np.array_equal(again, got_etot)), gap
+
+
+def embedded_phase(dev, records, every, sizes=EMBEDDED,
+                   small_rc=EMBEDDED_SMALL, lld=EMB_LLD):
+    """Phase 8: K4 on the slab and the impurity at ``sizes`` against its
+    plain version, timed, and their block, HoH and Chebyshev SCFs, K4
+    against plain on ``dev`` and at ``small_rc`` ``dev`` against the CPU.
+    Fills ``records`` for K4's forms."""
+    from rslmtoasa_tpu_torch import native
+    from rslmtoasa_tpu_torch.models.presets import (
+        build_synthetic_impurity,
+        build_synthetic_surface,
+    )
+    from rslmtoasa_tpu_torch.models.scf import SelfConsistency
+    from rslmtoasa_tpu_torch.ops import block_kernels as bk
+    from rslmtoasa_tpu_torch.ops.block_lanczos import BlockOperator
+    from rslmtoasa_tpu_torch.utils.timer import g_timer
+
+    def readings(diffs):
+        return ", ".join(f"|d{q}|={v:.3e}" for q, v in diffs.items())
+
+    build = {"surface": build_synthetic_surface,
+             "impurity": build_synthetic_impurity}
+    t0 = time.perf_counter()
+    full = {k: build[k](device="cpu", nsp=2, hoh=True, lld=lld, **kw)
+            for k, kw in sizes.items()}
+    small = {k: build[k](rc=small_rc, device="cpu", nsp=2, hoh=True,
+                         lld=lld) for k in sizes}
+    for sys_ in small.values():
+        sys_.cfg.energy.channels_ldos = EMBEDDED_SMALL_NE
+    for k, sys_ in full.items():
+        cl = sys_.cluster
+        say(8, f"{k}: kk={cl.kk}, {cl.ntype} types, nrec={cl.nrec}, "
+               f"nmax={cl.nmax}, {sys_.ham.cols.shape[1]} slots; small "
+               f"kk={small[k].cluster.kk}")
+    check(sizes is not EMBEDDED or (
+        full["surface"].cluster.kk == 27798
+        and full["surface"].cluster.nrec == 3
+        and full["impurity"].cluster.kk == 27316
+        and full["impurity"].cluster.nmax == 60
+        and full["impurity"].cluster.nrec == 3), "phase 8 shapes")
+    say(8, f"built in {time.perf_counter() - t0:.1f} s")
+    bulk_ms = records["block_step"]["ms"]
+    for k, sys_ in full.items():
+        name = f"block_step[{k}]"
+        blocks, blocks_o, iz_rows, iz_sp, nmax = sys_._spmv_tables()
+        hb, kk = sys_.ham, sys_.cluster.kk
+        r = sys_.cluster.nrec
+        nblocks = int((hb.cols < kk).sum())
+        ops = {"d=18": BlockOperator(blocks, iz_rows, hb.cols, hb.lsham,
+                                     iz_onsite=iz_sp, nmax=nmax),
+               "d=18 HoH": BlockOperator(blocks, iz_rows, hb.cols, hb.lsham,
+                                         iz_onsite=iz_sp, hoh=True,
+                                         hso=blocks_o, enim=hb.enim,
+                                         nmax=nmax),
+               "d=9": BlockOperator(blocks[..., :9, :9], iz_rows, hb.cols,
+                                    hb.lsham[..., :9, :9], iz_onsite=iz_sp,
+                                    nmax=nmax)}
+        for what, op in ops.items():
+            op = op.to(dev)
+            d = op.hs.shape[-1]
+            zone = op.zone()
+            nslots = op.cols.shape[1]
+            route = (f"local zone nl={zone.nl} from global memory, "
+                     f"{zone.types.numel()} type(s) past it in "
+                     f"{bk.chunks(d, zone.types.numel(), zone.otypes.numel(), nslots, True, True)}"
+                     f" chunk(s)" if zone is not None else
+                     f"{op.hs.shape[0]} types in "
+                     f"{bk.chunks(d, op.hs.shape[0], op.onsite.shape[0], nslots, True, True)}"
+                     f" chunk(s)")
+            psi = random_chains(kk, r * d, 21, dev, d=d)
+            err = k4_check(bk, op, psi, f"{k} {what}", records, name)
+            t_k, t_p = in_turns(lambda: op(psi, gram=True, plain=True),
+                                lambda: op(psi, gram=True))
+            flops, moved = k4_work(op, psi, nblocks, bk.nrowblk(kk, d))
+            ops_s, bytes_s = flops / FP64_TENSOR_FLOPS, moved / HBM_BYTES_S
+            bound = 1e3 * max(ops_s, bytes_s)
+            by = "operations" if ops_s >= bytes_s else "bytes"
+            lib = ""
+            if what == "d=18":
+                csr = csr_operator(op.hs, op.iz, op.cols, op.onsite, op.izo)
+                flat = psi.view(d * (kk + 1), r * d)
+                y0, _ = op(psi, plain=True)
+                e, scale = rel_err(
+                    torch.sparse.mm(csr, flat).view(kk, d, r * d), y0)
+                check(e <= 1e-12 * scale, f"library SpMV {k} d=18: {e}")
+                lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, flat))
+                lib = (f"; library torch.sparse.mm {lib_ms:.4f} ms; bulk "
+                       f"box 30 (phase 6, R=1) {bulk_ms:.4f} ms, here "
+                       f"{t_k / r:.4f} ms per start block")
+                records[name].update(ms=t_k, plain_ms=t_p, bound_ms=bound,
+                                     bound_by=by, library_ms=lib_ms)
+                del csr, flat, y0
+                if zone is not None:
+                    # the zone's cost: the same rows, all of the host's
+                    # type, with no zone (one type, one chunk)
+                    host = BlockOperator(
+                        hb.ee[:1], np.zeros(kk, np.int32), hb.cols,
+                        hb.lsham[:1]).to(dev)
+                    t_h = cuda_ms(lambda: host(psi, gram=True))
+                    lib += (f"; the same rows all of the host's type, no "
+                            f"zone: {t_h:.4f} ms, so the zone's "
+                            f"{zone.nl // bk.rows_per_tile(d)} row tiles cost "
+                            f"{t_k - t_h:.4f} ms")
+                    del host
+            say(8, f"{k} {what} R={r} ({route}): err {err:.3e}, reruns "
+                   f"bit-identical; kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+                   f"bound {bound:.4f} ms ({by}, {100 * bound / t_k:.1f}% "
+                   f"of it); {flops:.4e} flop {flops / t_k / 1e9:.2f} "
+                   f"TFLOP/s, {moved:.4e} B" + lib)
+            del psi, op
+        del ops
+        torch.cuda.empty_cache()
+
+    def embedded_system(sys_, case, device, plain):
+        sys_ = copy.deepcopy(sys_)
+        sys_.device, sys_.plain = torch.device(device), plain
+        sys_.cfg.control.recur = BLOCK_CASES[case]["recur"]
+        sys_.cfg.hamiltonian.hoh = BLOCK_CASES[case]["hoh"]
+        if sys_.cfg.control.recur == "chebyshev":
+            sys_.cfg.energy.energy_min, sys_.cfg.energy.energy_max = WINDOW
+        return sys_
+
+    def hold(pair, when, diffs, bars, explained):
+        """A pair's readings against ``bars``: an etot miss that the
+        atomic-sphere solver explains (``solver_explains``) is unmet, any
+        other miss fails the phase."""
+        for q, v in diffs.items():
+            if v <= bars[q]:
+                continue
+            what = f"{pair} {when}: |d{q}| {v:.3e} > {bars[q]:g}"
+            if q == "etot" and explained[0]:
+                unmet.append(f"{what}; the solver's inputs {explained[1]:.1e}"
+                             f" apart, and the solver on them repeats etot")
+            else:
+                misses.append(what)
+
+    misses, unmet = [], []
+    for k in sizes:
+        nrec = full[k].cluster.nrec
+        for case, spec in BLOCK_CASES.items():
+            per_it = (2 if spec["hoh"] else 1) * (
+                lld + 1 if spec["recur"] == "chebyshev" else lld - 1)
+            bars = NSTEP_BARS[case]
+            res, engine = {}, {}
+            for run, tmpl, device, plain in (("cuda", full, dev, False),
+                                             ("cuda-plain", full, dev, True),
+                                             ("cuda-small", small, dev, False),
+                                             ("cpu-small", small, "cpu",
+                                              False)):
+                engine[run] = (device, plain)
+                with solver_calls(native) as calls:
+                    res[run] = r = scf_once(
+                        SelfConsistency,
+                        embedded_system(tmpl[k], case, device, plain), every,
+                        g_timer, read=rec_scalars)
+                r["calls"] = calls
+                want = {n: 0 for n in every}
+                if torch.device(device).type != "cpu" and not plain:
+                    want["block_step"] = NSTEP * per_it
+                check(r["launches"] == want, f"{k} {case} {run} launches "
+                      f"{r['launches']}, want {want}")
+                rec = r["spent"][f"recursion-phase/{spec['recur']}-recursion"]
+                say(8, f"SCF {k} {case} {run}: {r['wall'] / NSTEP:.3f} s per "
+                       f"iteration, recursion {100 * rec / r['wall']:.1f}%; "
+                       "seconds per iteration: " + ", ".join(
+                           f"{s_} {v / NSTEP:.3f}"
+                           for s_, v in r["spent"].items() if v > 0.0005)
+                       + f"; etot {r['etot'].tolist()} fermi "
+                         f"{float(r['fermi'])!r}; K4 launches "
+                         f"{r['launches']['block_step']}")
+            if case == "block":
+                records[f"block_step[{k}]"]["launches"] = res["cuda"][
+                    "launches"]["block_step"]
+            for got, ref in (("cuda", "cuda-plain"),
+                             ("cuda-small", "cpu-small")):
+                pair = f"{k} {case} {got} vs {ref}"
+                gc, rc = res[got]["calls"], res[ref]["calls"]
+                diffs = scf_diffs(res[got]["first"], res[ref]["first"])
+                say(8, f"{pair} after 1 iteration: {readings(diffs)}")
+                hold(pair, "after 1 iteration", diffs, SCF_BARS,
+                     solver_explains(native, gc[:nrec], rc[:nrec],
+                                     res[got]["first"]["etot"]))
+                with solver_calls(native) as tc:
+                    twin = second_iteration(res[ref]["snap"], *engine[got],
+                                            every, read=rec_scalars)
+                want = {n: 0 for n in every}
+                if torch.device(engine[got][0]).type != "cpu" \
+                        and not engine[got][1]:
+                    want["block_step"] = per_it
+                check(twin["launches"] == want,
+                      f"{pair} iteration 2 launches {twin['launches']}")
+                port = scf_diffs(twin, res[ref])
+                say(8, f"{pair}, iteration 2 from {ref}'s state after 1: "
+                       f"{readings(port)}")
+                hold(pair, f"iteration 2 from {ref}'s state", port, bars,
+                     solver_explains(native, tc, rc[nrec:], twin["etot"]))
+                diffs = scf_diffs(res[got], res[ref])
+                say(8, f"{pair} after {NSTEP}: {readings(diffs)}; {got} from "
+                       f"its own state against from {ref}'s, one engine: "
+                       f"{readings(scf_diffs(res[got], twin))}")
+                unmet += [f"{pair} after {NSTEP}: |d{q}| {v:.3e} > "
+                          f"{bars[q]:g}" for q, v in diffs.items()
+                          if v > bars[q]]
+    say(8, f"bars unmet: {len(unmet)}" + "".join(f"; {u}" for u in unmet)
+        + f"; phase 8 took {time.perf_counter() - t0:.1f} s")
+    check(not misses, "; ".join(misses))
 
 
 def main():
@@ -395,8 +650,9 @@ def main():
     from rslmtoasa_tpu_torch.models.presets import (
         build_synthetic_b2,
         build_synthetic_bcc,
+        build_synthetic_impurity,
+        build_synthetic_surface,
     )
-    from rslmtoasa_tpu_torch import native
     from rslmtoasa_tpu_torch.models.scf import SelfConsistency
     from rslmtoasa_tpu_torch.ops import block_kernels as bk
     from rslmtoasa_tpu_torch.ops import cuda_build
@@ -929,6 +1185,11 @@ def main():
     say(7, f"bars unmet: {len(unmet)}"
         + "".join(f"; {u}" for u in unmet))
     check(not misses, "; ".join(misses))
+    del templates, soc
+    torch.cuda.empty_cache()
+
+    # 8. surface and impurity ----------------------------------------------
+    embedded_phase(dev, records, every)
     check("jax" not in sys.modules, "no JAX imported")
 
     kernels = [dict(name=n, route="cuda", source=SOURCES[n],
@@ -937,7 +1198,7 @@ def main():
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"])
                for n, r in records.items()]
-    say(8, f"total {time.perf_counter() - t_start:.1f} s")
+    say(9, f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

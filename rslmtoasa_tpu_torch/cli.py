@@ -6,8 +6,9 @@ Usage (reference ``source/os.f90 argument_parser`` :34-158 and
     python -m rslmtoasa_tpu_torch [input.nml] [nml=extra.nml ...]
                                   [output=dir] [device=cuda|cpu]
 
-Reads the namelist input and runs the bulk self-consistent field
-(``pre_processing`` ``none`` or ``bravais``, no ``processing`` and no
+Reads the namelist input and runs the self-consistent field of a bulk,
+surface or impurity cluster (``pre_processing`` ``none``, ``bravais``,
+``buildsurf``, ``newclubulk`` or ``newclusurf``; no ``processing`` and no
 ``post_processing``), writes the reference's output files
 (totaldos.out, <El>_out.nml, report.out, ...), and prints the
 hierarchical timing report.  The recursion runs on ``device`` (default
@@ -30,8 +31,6 @@ VALID_PRE = {"none", "bravais", "buildsurf", "newclubulk", "newclusurf"}
 VALID_PROC = {"none", "sd"}
 VALID_POST = {"none", "exchange", "exchange_p2rs", "conductivity",
               "conductivity_p2rs", "paoflow2rs", "orbital_modern"}
-# the branches this port runs; the rest are queued in ROADMAP.md
-PORTED_PRE = {"none", "bravais"}
 
 
 def parse_args(argv):
@@ -79,10 +78,10 @@ def run_calculation(cfg: JobConfig, workdir: str = ".",
         if val not in ok:
             g_logger.error(f"invalid calculation stage {val!r}")
             return 1
-    if pre not in PORTED_PRE or proc != "none" or post != "none":
+    if proc != "none" or post != "none":
         raise NotImplementedError(
             f"&calculation pre_processing={pre!r} processing={proc!r} "
-            f"post_processing={post!r}: only the bulk SCF is ported; see "
+            f"post_processing={post!r}: only the SCF is ported; see "
             "ROADMAP.md queue 1 for the other branches")
     if cfg.lattice.write_artifacts:
         raise NotImplementedError(

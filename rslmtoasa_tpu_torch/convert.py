@@ -8,11 +8,13 @@ both packages compute on identical inputs.
 
 Array keys: the cluster's fields by name (``cr``, ``iz``, ``num``,
 ``alat``, ``wav``, ``ntype``, ``nbulk``, ``nrec``, ``iu``, ``ib``,
-``irec``, ``atlist``, ``nn``, ``pbc``), its cell as ``cell_<field>``, the
-per-site ragged lists as ``dirs_<site>``, ``sbar_<site>`` and
-``sbarvec_<site>``, and the Hamiltonian's fields as ``ham_<field>``
-(``ham_ee``, ``ham_cols``, ``ham_iz``, and ``ham_eeo``, ``ham_enim``,
-``ham_lsham``, ... where present).
+``irec``, ``atlist``, ``nn``, ``pbc``, an impurity's ``nmax``, ``nbas``
+and ``chargetrf_type``, a slab's ``natoms_layer`` and ``miller``), its
+cell as ``cell_<field>``, the per-site ragged lists as ``dirs_<site>``,
+``sbar_<site>`` and ``sbarvec_<site>``, and the Hamiltonian's fields as
+``ham_<field>`` (``ham_ee``, ``ham_cols``, ``ham_iz``, and ``ham_eeo``,
+``ham_enim``, ``ham_lsham``, an impurity's combined tables ``ham_blocks``,
+``ham_iz_eff``, ... where present).
 """
 
 from __future__ import annotations
@@ -33,10 +35,13 @@ from .utils.namelist import Namelists
 
 _CLUSTER = ("cr", "iz", "num", "kk", "alat", "wav", "ntype", "nbulk",
             "nrec", "iu", "ib", "irec", "atlist", "nmax", "pbc",
-            "pbc_dims", "nn_count", "nn", "_ct1")
+            "pbc_dims", "nn_count", "nn", "_ct1", "nbas", "chargetrf_type",
+            "natoms_layer", "miller")
+# a slab's attributes that build_surf_full sets beside the dataclass fields
+_CLUSTER_EXTRA = ("natoms_layer", "miller")
 _CELL = ("a", "crd", "izp", "no", "ntot")
 _HAM = ("ee", "cols", "iz", "lsham", "hxc", "eeo", "eeoee", "enim",
-        "obarm")
+        "obarm", "hall", "hallo", "blocks", "blocks_o", "iz_eff")
 _ELEMENT = ("symbol", "atomic_number", "core", "valence", "f_core",
             "num_quant_s", "num_quant_p", "num_quant_d")
 
@@ -82,8 +87,11 @@ def system_from_numpy(arrays: Dict[str, np.ndarray], potentials: List[dict],
     cell = PrimitiveCell(**{k: _scalar(arrays[f"cell_{k}"]) for k in _CELL})
     fields = {k: _scalar(arrays[k]) for k in _CLUSTER if k in arrays}
     ct1 = fields.pop("_ct1", 0.0)
+    extra = {k: fields.pop(k) for k in _CLUSTER_EXTRA if k in fields}
     cl = Cluster(cell=cell, **fields)
     cl._ct1 = ct1
+    for k, v in extra.items():
+        setattr(cl, k, v)
     nsite = sum(1 for k in arrays if k.startswith("dirs_"))
     cl.dirs = [np.array(arrays[f"dirs_{s}"]) for s in range(nsite)]
     nsb = sum(1 for k in arrays if k.startswith("sbar_"))
@@ -95,6 +103,8 @@ def system_from_numpy(arrays: Dict[str, np.ndarray], potentials: List[dict],
         sys.ham = HamiltonianBlocks(**{
             k: np.array(arrays[f"ham_{k}"]) for k in _HAM
             if f"ham_{k}" in arrays})
+        if sys.ham.iz_eff is not None:
+            sys.ham.iz_eff = sys.ham.iz_eff.astype(np.int32)
     for p in potentials:
         p = dict(p)
         el = Element(**p.pop("element"))

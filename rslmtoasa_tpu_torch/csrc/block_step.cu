@@ -21,6 +21,8 @@
 //   add    (kk, D, C)                    added to y, or null
 //   y      (kk + pad, D, C)              out; with pad = 1, row kk is zero
 //   gram   (nrowblk, R, D, D)            out, or null
+//   tabl, izl, onl, izol                 the local zone's tables and
+//                                        indices, or null (see below)
 //
 //   y[i, a, c] = add[i, a, c]
 //                + sum_m sum_b T[iz[i], m, a, b] x[cols[i, m], b, c]
@@ -47,15 +49,37 @@
 // each B fragment read from shared memory feeding two MMAs) the kernel
 // ran 1.7 times slower at D = 18, as too few warps were left to hide the
 // gathers' latency (PERF.md section 6).  The grid is persistent: each
-// block copies the tables into shared memory once and walks the tiles
-// blockIdx.x, blockIdx.x + gridDim.x, ...; tile t is row tile t % nrt of
-// start block t / nrt.  The next tile's cols and types land by cp.async
+// block copies the tables into shared memory once, takes tile blockIdx.x
+// and then the next free tile of an int counter that all blocks draw from
+// (the last block out sets it back to 0), so that a block held up by a
+// slow tile takes fewer of the rest; which block runs a tile changes no
+// bit of it.  Tile t is row tile t % nrt of start block t / nrt.  The next tile's cols and types land by cp.async
 // while the current one is multiplied.  Each lane loads its gathered
 // double2 of the next quad into registers while the tensor cores multiply
 // the current one.
 // A row tile whose rows mix types runs once per type present, with the
 // other types' inputs zero (exact zeros, so the bits do not depend on the
 // pass order); the onsite term likewise per onsite type present.
+//
+// An impurity's local zone.  Its recursion runs on the combined row
+// table [hall; ee]: one row type per atom of the local zone (the first
+// nmax rows), then one per species, 64 types for three impurities at
+// nmax = 60, which no chunking fits beside the fixed buffers.  The caller
+// splits the rows at nl = ceil(nmax / RT) RT, so that no tile holds rows
+// of both parts.  The nlt = nl / RT local row tiles read the combined
+// tables from global memory (tabl, onl, indexed by izl and izol: ntypel
+// and ntol types), one pass per type present as above, so each of their
+// per-atom rows is a pass of the one or two warps that hold it.  Every
+// other tile runs the shared-memory route on tables compacted to the
+// types present beyond nl (tab, onsite, indexed by iz and izo: at the bcc
+// impurity one type and one onsite type, so one chunk, as bulk bcc).  The
+// branch is per tile and so block-uniform, and each branch has its own
+// call of run_quads, so that the shared-memory loads stay LDS.  A local
+// tile takes several times as long as a bulk one (its fragments come from
+// L2 a quad at a time); as the blocks draw their tiles from the counter,
+// the rest of the grid absorbs it: at the three-impurity shape the zone
+// costs under 1 % of the launch, against 14 % when each block walked a
+// fixed list of tiles (PERF.md section 6).
 //
 // Tables larger than shared memory.  One type's table takes 174 KB at
 // D = 18 (52 KB at D = 9); with the onsite table, the Gram staging and the
@@ -178,15 +202,15 @@ __device__ __forceinline__ void run_quads(double (&acc)[NT][4], int j0,
 }
 
 // Dynamic shared memory: the table chunk of every type, the onsite table,
-// the Gram staging, and two of each (this tile's and the next one's) cols,
-// types and onsite types.
+// the Gram staging, two of each (this tile's and the next one's) cols,
+// types and onsite types, and the next tile's index.
 template <int D>
 size_t smem_fixed(int nto, int nslots, bool onsite, bool gram) {
   using W = Width<D>;
   const size_t quad = (size_t)W::NT * 32 * sizeof(double2);
   return (onsite ? (size_t)nto * nquads(D) * quad : 0) +
          (gram ? (size_t)W::RT * W::GC * D * sizeof(double2) : 0) +
-         2 * (size_t)W::RT * (nslots + 2) * sizeof(int);
+         2 * (size_t)W::RT * (nslots + 2) * sizeof(int) + sizeof(int);
 }
 
 template <int D>
@@ -200,8 +224,13 @@ __global__ void __launch_bounds__(THREADS, 1)
                       const double2* __restrict__ p,
                       const double2* __restrict__ add,
                       double2* __restrict__ y, double2* __restrict__ gram,
-                      int ntype, int nto, int nslots, int kk, int nout,
-                      int C, int cq) {
+                      const double2* __restrict__ tabl,
+                      const int* __restrict__ izl,
+                      const double2* __restrict__ onl,
+                      const int* __restrict__ izol,
+                      int* __restrict__ counter, int ntype, int nto,
+                      int ntypel, int ntol, int nlt, int nslots, int kk,
+                      int nout, int C, int cq) {
   constexpr int RT = Width<D>::RT, NT = Width<D>::NT, GC = Width<D>::GC;
   constexpr int FRAG = NT * 32;  // double2 of one quad's fragments
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -213,6 +242,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   int* cols2 = reinterpret_cast<int*>(sg + (gram ? RT * GC * D : 0));
   int* ty2 = cols2 + 2 * RT * nslots;  // [2][RT]
   int* tyo2 = ty2 + 2 * RT;            // [2][RT]
+  int& next_tile = tyo2[2 * RT];       // the tile after this one
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -238,16 +268,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   // zero-filled and never read
   auto stage = [&](int tl, int buf) {
     const int r0 = (tl % nrt) * RT;
+    const bool lc = tl % nrt < nlt;
+    const int* tys = lc ? izl : iz;
+    const int* tyos = lc ? izol : izo;
     const int nr = max(0, min(RT, kk - r0)), n = nr * nslots;
     int* cb = cols2 + buf * RT * nslots;
     for (int i = tid; i < RT * nslots; i += blockDim.x)
       cp_async4(cb + i, i < n ? cols + (size_t)r0 * nslots + i : cols,
                 i < n ? 4 : 0);
     for (int i = tid; i < RT; i += blockDim.x) {
-      cp_async4(ty2 + buf * RT + i, i < nr ? iz + r0 + i : iz,
+      cp_async4(ty2 + buf * RT + i, i < nr ? tys + r0 + i : tys,
                 i < nr ? 4 : 0);
       if (onsite != nullptr)
-        cp_async4(tyo2 + buf * RT + i, i < nr ? izo + r0 + i : izo,
+        cp_async4(tyo2 + buf * RT + i, i < nr ? tyos + r0 + i : tyos,
                   i < nr ? 4 : 0);
     }
   };
@@ -257,15 +290,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   __syncthreads();
 
   int cur = 0;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, cur ^= 1) {
+  for (int tile = blockIdx.x, next; tile < ntiles; tile = next, cur ^= 1) {
+    if (tid == 0) next_tile = gridDim.x + atomicAdd(counter, 1);
+    __syncthreads();
+    next = next_tile;
     // the next tile's cols land while this one is multiplied
-    if (tile + (int)gridDim.x < ntiles) stage(tile + gridDim.x, cur ^ 1);
+    if (next < ntiles) stage(next, cur ^ 1);
     cp_async_commit();
     const int* colsh = cols2 + cur * RT * nslots;
     const int* tysh = ty2 + cur * RT;
     const int* tyosh = tyo2 + cur * RT;
     const int rt = tile % nrt, r = tile / nrt;
     const int row0 = rt * RT, c0 = r * D;
+    const bool local = rt < nlt;  // block-uniform
 
     // the lane's pairs: pair 16 warp + 8 k + g
     int pr[NX], pc[NX];
@@ -304,38 +341,48 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       return __any_sync(FULL, any);
     };
-    for (int j0 = 0; j0 < nqs; j0 += cq) {
-      if (nchunk > 1) {  // block-uniform
-        __syncthreads();
-        load_chunk(j0);
-        __syncthreads();
+    // the lane's input k of slot quad j, or nullptr where it is zero
+    auto slot_src = [&](int j, int k) -> const double2* {
+      const int q = QUAD * j + t;
+      if (!mine[k] || q >= D * nslots) return nullptr;
+      const int m = q / D, b = q - D * m;
+      const int col = colsh[pr[k] * nslots + m];
+      if (col >= kk) return nullptr;
+      return x + ((size_t)col * D + b) * C + c0 + pc[k];
+    };
+    auto onsite_src = [&](int j, int k) -> const double2* {
+      const int q = QUAD * j + t;
+      if (!mine[k] || q >= D) return nullptr;
+      return p + ((size_t)(row0 + pr[k]) * D + q) * C + c0 + pc[k];
+    };
+    if (local) {
+      for (int ty = 0; ty < ntypel; ++ty)
+        if (select(tysh, ty))
+          run_quads<NT>(acc, 0, nqs, slot_src, tabl + (size_t)ty * nqs * FRAG,
+                        lane);
+      if (onsite != nullptr)
+        for (int to = 0; to < ntol; ++to)
+          if (select(tyosh, to))
+            run_quads<NT>(acc, 0, nqo, onsite_src,
+                          onl + (size_t)to * nqo * FRAG, lane);
+    } else {
+      for (int j0 = 0; j0 < nqs; j0 += cq) {
+        if (nchunk > 1) {  // block-uniform
+          __syncthreads();
+          load_chunk(j0);
+          __syncthreads();
+        }
+        const int j1 = min(nqs, j0 + cq);
+        for (int ty = 0; ty < ntype; ++ty)
+          if (select(tysh, ty))
+            run_quads<NT>(acc, j0, j1, slot_src,
+                          tabsh + (size_t)ty * cq * FRAG, lane);
       }
-      const int j1 = min(nqs, j0 + cq);
-      for (int ty = 0; ty < ntype; ++ty) {
-        if (!select(tysh, ty)) continue;
-        auto src = [&](int j, int k) -> const double2* {
-          const int q = QUAD * j + t;
-          if (!mine[k] || q >= D * nslots) return nullptr;
-          const int m = q / D, b = q - D * m;
-          const int col = colsh[pr[k] * nslots + m];
-          if (col >= kk) return nullptr;
-          return x + ((size_t)col * D + b) * C + c0 + pc[k];
-        };
-        run_quads<NT>(acc, j0, j1, src, tabsh + (size_t)ty * cq * FRAG,
-                      lane);
-      }
-    }
-    if (onsite != nullptr) {
-      for (int to = 0; to < nto; ++to) {
-        if (!select(tyosh, to)) continue;
-        auto src = [&](int j, int k) -> const double2* {
-          const int q = QUAD * j + t;
-          if (!mine[k] || q >= D) return nullptr;
-          return p + ((size_t)(row0 + pr[k]) * D + q) * C + c0 + pc[k];
-        };
-        run_quads<NT>(acc, 0, nqo, src, onsh + (size_t)to * nqo * FRAG,
-                      lane);
-      }
+      if (onsite != nullptr)
+        for (int to = 0; to < nto; ++to)
+          if (select(tyosh, to))
+            run_quads<NT>(acc, 0, nqo, onsite_src,
+                          onsh + (size_t)to * nqo * FRAG, lane);
     }
 
 #pragma unroll
@@ -399,6 +446,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     cp_async_wait_all();  // the next tile's cols
     __syncthreads();
   }
+  // the last block out sets the counters back to 0 for the next launch
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(counter + 1, 1) == (int)gridDim.x - 1) {
+      counter[0] = 0;
+      counter[1] = 0;
+      __threadfence();
+    }
+  }
 }
 
 // Slot quads per chunk: all of them if every type's table fits beside the
@@ -410,6 +466,7 @@ int chunk_quads(int ntype, int nto, int nslots, bool onsite, bool gram,
   const size_t fixed = smem_fixed<D>(nto, nslots, onsite, gram);
   const int nqs = nquads(D * nslots);
   if (fixed + ntype * quad > (size_t)optin) return 0;
+  if (ntype == 0) return nqs;  // every row in the local zone
   int cq = (int)((optin - fixed) / (ntype * quad));
   if (cq >= nqs) return nqs;
   const int nchunk = (nqs + cq - 1) / cq;
@@ -427,8 +484,10 @@ int smem_optin(cudaError_t& err) {
 template <int D>
 int launch(const void* tab, const void* iz, const void* cols, const void* x,
            const void* onsite, const void* izo, const void* p,
-           const void* add, void* y, void* gram, int ntype, int nto,
-           int nslots, int kk, int pad, int C, void* stream) {
+           const void* add, void* y, void* gram, const void* tabl,
+           const void* izl, const void* onl, const void* izol, void* counter,
+           int ntype, int nto, int ntypel, int ntol, int nl, int nslots,
+           int kk, int pad, int C, void* stream) {
   constexpr int RT = Width<D>::RT;
   cudaError_t err;
   const int optin = smem_optin(err);
@@ -438,6 +497,7 @@ int launch(const void* tab, const void* iz, const void* cols, const void* x,
   if (cq == 0) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_fixed<D>(nto, nslots, on, gr) +
                       (size_t)ntype * cq * Width<D>::NT * 32 * sizeof(double2);
+  if (nl % RT) return (int)cudaErrorInvalidValue;
   const int nout = kk + pad;
   const int ntiles = ((nout + RT - 1) / RT) * (C / D);
   auto kernel = block_step_kernel<D>;
@@ -458,7 +518,9 @@ int launch(const void* tab, const void* iz, const void* cols, const void* x,
       (const double2*)tab, (const int*)iz, (const int*)cols,
       (const double2*)x, (const double2*)onsite, (const int*)izo,
       (const double2*)p, (const double2*)add, (double2*)y, (double2*)gram,
-      ntype, nto, nslots, kk, nout, C, cq);
+      (const double2*)tabl, (const int*)izl, (const double2*)onl,
+      (const int*)izol, (int*)counter, ntype, nto, ntypel, ntol, nl / RT,
+      nslots, kk, nout, C, cq);
   return (int)cudaGetLastError();
 }
 
@@ -467,19 +529,26 @@ int launch(const void* tab, const void* iz, const void* cols, const void* x,
 extern "C" {
 
 // K4.  tab and onsite are packed tables; onsite/izo, p, add and gram may
-// be null as the layout notes say; C must be a multiple of d.  Returns the
+// be null as the layout notes say; C must be a multiple of d.  The first
+// nl rows (a multiple of the tile's rows, 0 without a local zone) take
+// the packed tables tabl and onl with the indices izl and izol.  counter
+// is two ints, 0 before the launch and left 0 by it.  Returns the
 // cudaError_t of the set-up calls or of the launch.
 int block_step(int d, const void* tab, const void* iz, const void* cols,
                const void* x, const void* onsite, const void* izo,
                const void* p, const void* add, void* y, void* gram,
-               int ntype, int nto, int nslots, int kk, int pad, int C,
-               void* stream) {
+               const void* tabl, const void* izl, const void* onl,
+               const void* izol, void* counter, int ntype, int nto,
+               int ntypel, int ntol, int nl, int nslots, int kk, int pad,
+               int C, void* stream) {
   if (d == 9)
-    return launch<9>(tab, iz, cols, x, onsite, izo, p, add, y, gram, ntype,
-                     nto, nslots, kk, pad, C, stream);
+    return launch<9>(tab, iz, cols, x, onsite, izo, p, add, y, gram, tabl,
+                     izl, onl, izol, counter, ntype, nto, ntypel, ntol, nl,
+                     nslots, kk, pad, C, stream);
   if (d == 18)
-    return launch<18>(tab, iz, cols, x, onsite, izo, p, add, y, gram, ntype,
-                      nto, nslots, kk, pad, C, stream);
+    return launch<18>(tab, iz, cols, x, onsite, izo, p, add, y, gram, tabl,
+                      izl, onl, izol, counter, ntype, nto, ntypel, ntol, nl,
+                      nslots, kk, pad, C, stream);
   return (int)cudaErrorInvalidValue;
 }
 

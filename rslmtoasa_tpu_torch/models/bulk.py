@@ -1,11 +1,14 @@
-"""Bulk calculation pipeline: geometry -> Hamiltonian -> recursion -> LDOS.
+"""Calculation pipeline: geometry -> Hamiltonian -> recursion -> LDOS.
 
-Mirrors the reference's ``pre_processing='bravais'`` setup
-(``calculation.f90 pre_processing_bravais`` :550-623) followed by the
-recursion pieces of ``self%run`` (``self.f90`` :676-764): scalar Haydock,
-block Lanczos and Chebyshev.  Geometry, structure constants and the
-Hamiltonian are built on the host (NumPy); the recursion runs on
-``device`` through the Haydock kernels (K1'-K3') or the block step (K4).
+Mirrors the reference's ``pre_processing`` setups (``calculation.f90``
+``bravais`` :550-623, ``buildsurf`` and ``newclubulk``) followed by the
+recursion pieces of ``self%run`` (``self.f90`` :676-764): scalar Haydock
+(bulk only), block Lanczos and Chebyshev.  Geometry, structure constants
+and the Hamiltonian are built on the host (NumPy); the recursion runs on
+``device`` through the Haydock kernels (K1'-K3') or the block step (K4).  An impurity's recursion runs on the
+combined row table ``[hall; ee]``: one row per local-zone atom, then one
+per species (``HamiltonianBlocks.blocks``, ``iz_eff``), with the species
+as the onsite index.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ from ..atoms.potential import SymbolicAtom
 from ..config import JobConfig
 from ..geometry import (
     bravais_cluster,
+    build_surf_full,
     neighbor_map,
+    newclu,
     primitive_cell,
     sbar_for_cluster,
 )
@@ -39,6 +44,23 @@ from ..physics.harmonics import rotmag_loc
 from ..utils.device import resolve_device
 from ..utils.logger import g_logger
 from ..utils.timer import g_timer
+
+
+# where the reference's behaviour is in question (ROADMAP.md queue 3):
+# the scalar Haydock path on a surface or an impurity cluster, and an
+# impurity in a slab
+SCALAR_EMBEDDED = ("ROADMAP queue 3, 'the scalar path on surface and "
+                   "impurity clusters'")
+NEWCLUSURF = "ROADMAP queue 3, 'an impurity in a slab (newclusurf)'"
+
+
+def refuse_scalar_embedded(calctype: str):
+    """Raise for the scalar recursion on a surface or impurity cluster."""
+    if calctype in ("S", "I"):
+        raise NotImplementedError(
+            f"recur='lanczos' with calctype={calctype!r}: run "
+            f"recur='block' or 'chebyshev'; the scalar path is "
+            f"{SCALAR_EMBEDDED}")
 
 
 @dataclass
@@ -63,16 +85,15 @@ class BulkSystem:
             "cuda" if self.device is None else self.device)
 
     @classmethod
-    def build(cls, cfg: JobConfig, workdir: str = ".",
-              device="cuda") -> "BulkSystem":
+    def build(cls, cfg: JobConfig, workdir: str = ".", device="cuda",
+              atoms: Optional[List[SymbolicAtom]] = None) -> "BulkSystem":
+        """Geometry, structure constants and species of ``cfg``; the
+        species from the element files unless ``atoms`` gives them."""
+        if (cfg.calculation.pre_processing or "").strip() == "newclusurf":
+            raise NotImplementedError(
+                f"pre_processing='newclusurf': {NEWCLUSURF}")
         sys = cls(cfg=cfg, workdir=workdir, device=device)
         lat = cfg.lattice
-        pre = (cfg.calculation.pre_processing or "").strip()
-        if cfg.control.calctype != "B" or pre == "newclusurf":
-            raise NotImplementedError(
-                f"calctype={cfg.control.calctype!r} / pre_processing="
-                f"{pre!r}: surface and impurity clusters are ROADMAP "
-                "queue 1, item 9 (surface and impurity)")
         # historical defaults when &lattice omits ct / r2 (the reference's
         # commented-out build_data fallback ct = alat + 0.1, r2 = ct^2 —
         # inputs like example/exchange/bccFe rely on them)
@@ -102,7 +123,7 @@ class BulkSystem:
                 pbc_wrap=(bool(lat.b1), bool(lat.b2), bool(lat.b3)),
             )
             cl._ct1 = float(lat.ct[0])
-            if cell.iu is not None:
+            if cell.iu is not None and cfg.control.calctype == "B":
                 # bookkeeping straight from the user lattice.nml
                 cl.iu = cell.iu.copy()
                 cl.ib = cell.ib.copy()
@@ -111,6 +132,11 @@ class BulkSystem:
                 cl.atlist = np.concatenate([cl.ib, cl.irec]) \
                     if cl.nbulk else cl.irec.copy()
                 cl.ntype = max(cl.ntype, int(cl.iz.max()))
+            if cfg.control.calctype == "I":
+                cl = newclu(cl, lat.inclu, cell.ntot)
+            elif cfg.control.calctype == "S":
+                cl = build_surf_full(cl, lat.surftype, int(lat.nlay),
+                                     cell.ntot)
             neighbor_map(cl, ct1=float(lat.ct[0]))
         g_logger.info(
             f"cluster built: kk={cl.kk}, nnmax={cl.nn.shape[1]}, "
@@ -122,10 +148,9 @@ class BulkSystem:
             )
         sys.cluster = cl
         with g_timer.section("element-db"):
-            for label in cfg.atoms.labels:
-                sys.atoms.append(
-                    SymbolicAtom.from_file(label, cfg.atoms.database or workdir)
-                )
+            sys.atoms = list(atoms) if atoms is not None else [
+                SymbolicAtom.from_file(label, cfg.atoms.database or workdir)
+                for label in cfg.atoms.labels]
         sys.emesh = EnergyMesh.build(cfg.energy)
         return sys
 
@@ -152,6 +177,7 @@ class BulkSystem:
         Returns (a, b2) with shape (lld, 18, nrec): per-orbital chains in the
         reference's ordering (9 up-spin then 9 down-spin orbitals).
         """
+        refuse_scalar_embedded(self.cfg.control.calctype)
         cl = self.cluster
         hb = self.ham
         lld = self.cfg.control.lld
@@ -196,6 +222,18 @@ class BulkSystem:
         return np.zeros((hb.ee.shape[0], 18, 18), dtype=np.complex128)
 
     # ------------------------------------------------------------------
+    def _spmv_tables(self):
+        """Block-row tables of the recursion: the combined ``[hall; ee]``
+        rows with per-atom row indices in an impurity's local zone, the
+        per-type rows otherwise.  Returns (blocks, blocks_o, iz_rows,
+        iz_species, nmax): ``iz_species`` indexes the onsite tables and
+        the first ``nmax`` rows of ``blocks`` are per-atom."""
+        hb = self.ham
+        if hb.blocks is not None:
+            return hb.blocks, hb.blocks_o, hb.iz_eff, hb.iz, self.cluster.nmax
+        return hb.ee, hb.eeo, hb.iz, hb.iz, 0
+
+    # ------------------------------------------------------------------
     def run_block(self):
         """Block-Lanczos recursion (``recur_b``) for all rec atoms on
         ``self.device``.
@@ -208,6 +246,7 @@ class BulkSystem:
         hoh = self.cfg.hamiltonian.hoh
         rec_atoms = [int(j) - 1 for j in cl.irec]
         lsham = self._lsham()
+        blocks, blocks_o, iz_rows, iz_sp, nmax = self._spmv_tables()
         with g_timer.section("block-recursion"):
             if self.cfg.hamiltonian.local_axis:
                 # rotate the full Hamiltonian to each rec atom's moment
@@ -219,10 +258,11 @@ class BulkSystem:
                 for ja in rec_atoms:
                     mom = self.atoms[int(cl.iz[ja]) - 1].potential.mom
                     op = BlockOperator(
-                        rotmag_loc(hb.ee, mom), hb.iz, hb.cols,
-                        rotmag_loc(lsham, mom), hoh=hoh,
-                        hso=rotmag_loc(hb.eeo, mom) if hoh else None,
+                        rotmag_loc(blocks, mom), iz_rows, hb.cols,
+                        rotmag_loc(lsham, mom), iz_onsite=iz_sp, hoh=hoh,
+                        hso=rotmag_loc(blocks_o, mom) if hoh else None,
                         enim=rotmag_loc(hb.enim, mom) if hoh else None,
+                        nmax=nmax,
                     ).to(self.device)
                     psi0 = block_start_vectors(cl.kk, [ja], self.device)
                     a_b, b2_b = block_lanczos(op, psi0, lld,
@@ -233,9 +273,10 @@ class BulkSystem:
                         np.concatenate(b_parts, axis=1))
             psi0 = self._cached_psi0(cl.kk, rec_atoms)
             return block_lanczos_auto(
-                hb.ee, lsham, hb.iz, hb.cols, psi0, lld, hoh=hoh,
-                hso=hb.eeo if hoh else None,
-                enim=hb.enim if hoh else None, plain=self.plain)
+                blocks, lsham, iz_rows, hb.cols, psi0, lld, hoh=hoh,
+                hso=blocks_o if hoh else None,
+                enim=hb.enim if hoh else None, iz_onsite=iz_sp, nmax=nmax,
+                plain=self.plain)
 
     # ------------------------------------------------------------------
     def run_chebyshev(self, emesh):
@@ -251,12 +292,14 @@ class BulkSystem:
         rec_atoms = [int(j) - 1 for j in cl.irec]
         a = (emesh.energy_max - emesh.energy_min) / (2.0 - 0.3)
         b = (emesh.energy_max + emesh.energy_min) / 2.0
+        blocks, blocks_o, iz_rows, iz_sp, nmax = self._spmv_tables()
         psi0 = self._cached_psi0(cl.kk, rec_atoms)
         with g_timer.section("chebyshev-recursion"):
             return chebyshev_moments_auto(
-                hb.ee, self._lsham(), hb.iz, hb.cols, psi0, lld, a, b,
-                hoh=hoh, hso=hb.eeo if hoh else None,
-                enim=hb.enim if hoh else None, plain=self.plain)
+                blocks, self._lsham(), iz_rows, hb.cols, psi0, lld, a, b,
+                hoh=hoh, hso=blocks_o if hoh else None,
+                enim=hb.enim if hoh else None, iz_onsite=iz_sp, nmax=nmax,
+                plain=self.plain)
 
     # ------------------------------------------------------------------
     def ldos(self, a: np.ndarray, b2: np.ndarray):

@@ -23,7 +23,7 @@ from ..config import (
     SelfCfg,
 )
 from ..utils.device import resolve_device
-from ..utils.namelist import Namelists
+from ..utils.namelist import Namelists, parse_namelists
 
 
 def synthetic_bcc_atom(label: str = "X") -> SymbolicAtom:
@@ -169,3 +169,85 @@ def build_synthetic_b2(rc: float = 9.0, ndim: int = 10000, lld: int = 8,
     sys_.emesh = EnergyMesh.build(cfg.energy)
     sys_.build_hamiltonian()
     return sys_
+
+
+# ----------------------------------------------------------------------
+# slab and impurity clusters on the bcc preset's atoms
+BAND_SHIFT = 0.01  # Ry: type k beyond the bulk has its bands moved by k times this
+SURFACE = "0 0 1"  # the slab's Miller normal
+IMPURITIES = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.5], [1.0, 0.0, 0.0]])
+# The slab's surface Madelung shifts, mixed in at 5 %: with the bulk's
+# fixed Fermi level each surface layer lacks ~0.3 electrons after the first
+# iteration, and the whole shift (vmix 1) moves its bands by ~3 Ry, out of
+# the Chebyshev window.  At 5 % two iterations stay within it.
+SLAB_CHARGE = "&charge\n vmix = 0.05\n/\n"
+
+
+def shifted_bcc_atom(label: str, k: int) -> SymbolicAtom:
+    """:func:`synthetic_bcc_atom` with its band centres (and ``c``,
+    ``enu`` with them) moved by ``k * BAND_SHIFT``, so that the types of a
+    slab or an impurity cluster differ."""
+    at = synthetic_bcc_atom(label)
+    pot = at.potential
+    for a in (pot.center_band, pot.enu, pot.c):
+        a += k * BAND_SHIFT
+    return at
+
+
+def synthetic_embedded_config(calctype: str, rc: float, lld: int, nsp: int,
+                              nlay: int = 3, inclu=IMPURITIES) -> JobConfig:
+    """The bcc preset's config as a bcc(001) slab of ``nlay`` surface
+    layers (``calctype='S'``, ``buildsurf``) or as the bcc host with an
+    impurity at each row of ``inclu`` (``'I'``, ``newclubulk``); block
+    recursion, one label per type: ``X`` (bulk), ``S1..`` or ``I1..``."""
+    cfg = synthetic_bcc_config(rc=rc, ndim=1_000_000, lld=lld, nsp=nsp)
+    cfg.control.calctype = calctype
+    cfg.control.recur = "block"
+    lat = cfg.lattice
+    inclu = np.atleast_2d(np.asarray(inclu, dtype=np.float64))
+    if calctype == "S":
+        labels = [f"S{k}" for k in range(1, nlay + 1)]
+        cfg.calculation.pre_processing = "buildsurf"
+        lat.surftype, lat.nlay = SURFACE, nlay
+        cfg.namelists = parse_namelists(SLAB_CHARGE)
+    else:
+        labels = [f"I{k}" for k in range(1, inclu.shape[0] + 1)]
+        cfg.calculation.pre_processing = "newclubulk"
+        lat.nclu, lat.inclu = inclu.shape[0], inclu
+    cfg.atoms.labels = ["X"] + labels
+    lat.ntype = len(cfg.atoms.labels)
+    return cfg
+
+
+def build_synthetic_embedded(cfg: JobConfig, hoh: bool = False,
+                             device="cuda"):
+    """``BulkSystem.build`` of :func:`synthetic_embedded_config`'s config
+    on the shifted bcc atoms (type k gets ``k * BAND_SHIFT``), with its
+    Hamiltonian built, recursing on ``device``."""
+    from .bulk import BulkSystem
+
+    cfg.hamiltonian.hoh = hoh
+    atoms = [shifted_bcc_atom(label, k)
+             for k, label in enumerate(cfg.atoms.labels)]
+    sys_ = BulkSystem.build(cfg, device=device, atoms=atoms)
+    sys_.build_hamiltonian()
+    return sys_
+
+
+def build_synthetic_surface(rc: float = 340.0, nlay: int = 3, nsp: int = 2,
+                            hoh: bool = False, lld: int = 16, device="cuda"):
+    """A bcc(001) slab of ``nlay`` surface types over the bcc host
+    (``rc=340``: kk = 27 798, three rec atoms, four types)."""
+    return build_synthetic_embedded(
+        synthetic_embedded_config("S", rc, lld, nsp, nlay=nlay), hoh, device)
+
+
+def build_synthetic_impurity(rc: float = 220.0, inclu=IMPURITIES,
+                             nsp: int = 2, hoh: bool = False, lld: int = 16,
+                             device="cuda"):
+    """The bcc host with one impurity species at each row of ``inclu``
+    (lattice units; ``rc=220``: kk = 27 316, a local zone of 60 atoms for
+    the three defaults)."""
+    return build_synthetic_embedded(
+        synthetic_embedded_config("I", rc, lld, nsp, inclu=inclu), hoh,
+        device)

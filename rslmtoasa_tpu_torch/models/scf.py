@@ -5,10 +5,11 @@ mixing -> Madelung -> atomic-sphere SCF (host) -> orthogonal->TB transform
 -> convergence check.  Produces the reference's observable outputs:
 ``totaldos.out`` rows and ``<El>_out.nml`` checkpoints.
 
-The port runs the bulk (``calctype='B'``) branch with each of its
-recursions (``recur`` ``'lanczos'``, ``'block'``, ``'chebyshev'``) and the
-native atomic-sphere solver; the other branches raise
-``NotImplementedError`` naming their ROADMAP item.
+The port runs the bulk (``calctype='B'``), surface (``'S'``) and impurity
+(``'I'``) branches with the native atomic-sphere solver: the bulk with each
+of its recursions (``recur`` ``'lanczos'``, ``'block'``, ``'chebyshev'``),
+the surface and the impurity with the block and Chebyshev ones.  The
+other branches raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,12 +26,13 @@ from ..ops.lanczos import roll_selected
 from ..physics.bands import Bands
 from ..physics.energy_mesh import EnergyMesh
 from ..physics.greens import bgreen, get_terminf
-from ..physics.madelung import MadelungMatrix, bulkpot
+from ..physics.madelung import MadelungMatrix, bulkpot, impmad, imppot
+from ..physics.madelung_surf import SurfaceMadelung, build_alelay, surfpot
 from ..physics.mixer import Mixer
 from ..utils.logger import g_logger
 from ..utils.namelist import write_namelist
 from ..utils.timer import g_timer
-from .bulk import BulkSystem
+from .bulk import BulkSystem, refuse_scalar_embedded
 
 ANG2AU = 1.8897259886
 RY2TESLA = 2.35051754997e5
@@ -98,8 +100,6 @@ def magnetic_torques(atoms, iz_rec) -> np.ndarray:
 
 # where each branch the port does not run yet is queued (ROADMAP.md)
 ROADMAP_ITEM = {
-    "I": "queue 1, item 9 (surface and impurity)",
-    "S": "queue 1, item 9 (surface and impurity)",
     "atomsphere": "queue 1, item 15 (the Python atomic-sphere solver)",
 }
 
@@ -109,10 +109,10 @@ class SelfConsistency:
         self.sys = sys
         self.cfg = sys.cfg
         calctype = self.cfg.control.calctype
-        if calctype != "B":
-            raise NotImplementedError(
-                f"calctype={calctype!r} is ROADMAP "
-                f"{ROADMAP_ITEM.get(calctype, 'queue 1')}")
+        if calctype not in ("B", "S", "I"):
+            raise NotImplementedError(f"calctype={calctype!r}")
+        if self.cfg.control.recur not in ("block", "chebyshev"):
+            refuse_scalar_embedded(calctype)
         self.workdir = workdir
         cl = sys.cluster
         # recursion atoms -> species index (0-based)
@@ -124,10 +124,19 @@ class SelfConsistency:
         qqv = sum(sys.atoms[t].element.valence
                   for t in range(cl.cell.ntot))
         self.qqv = float(qqv)
-        with g_timer.section("madelung-matrix"):
-            self.madelung = MadelungMatrix.bulk(
-                cl.cell.a, cl.cell.crd, cl.alat
-            )
+        self.madelung = self.amad_imp = self.smad = None
+        if calctype == "B":
+            with g_timer.section("madelung-matrix"):
+                self.madelung = MadelungMatrix.bulk(
+                    cl.cell.a, cl.cell.crd, cl.alat
+                )
+        elif calctype == "I":
+            with g_timer.section("madelung-surface"):
+                self.amad_imp = impmad(cl.cr, cl.alat, cl.wav, cl.nbas)
+        else:
+            with g_timer.section("madelung-surface"):
+                bs, q3 = build_alelay(cl.cr, cl.num, cl.miller)
+                self.smad = SurfaceMadelung(bs, q3, cl.nbas, cl.alat, cl.wav)
         self.fermi = self.cfg.energy.fermi
         self.state = SCFState()
 
@@ -218,8 +227,7 @@ class SelfConsistency:
             # ---------------- mixing + electrostatics ---------------
             self.mix.mixpq()
             dq = self.mix.charge_transfer(sys.atoms, self.iz_rec)
-            iz_bas = [int(z) - 1 for z in sys.cluster.cell.izp]
-            bulkpot(self.madelung.amad, dq, iz_bas, sys.atoms, self.iz_rec)
+            self.electrostatics(dq)
             self.mix.save_to("current", sys.atoms, self.iz_rec)
 
             # ---------------- atomic spheres ------------------------
@@ -238,6 +246,31 @@ class SelfConsistency:
                 break
             g_logger.info(f"Not converged, delta={self.mix.delta:.6e}")
         return self.state
+
+    # ------------------------------------------------------------------
+    def electrostatics(self, dq: np.ndarray):
+        """The Madelung shifts of the rec atoms' potentials from their
+        charge transfers ``dq``: ``bulkpot``, ``imppot`` with the bulk
+        host's charge transfers (``get_charge_transf`` :402-416), or
+        ``surfpot`` with ``&charge vmix``."""
+        sys, cl = self.sys, self.sys.cluster
+        if self.madelung is not None:
+            iz_bas = [int(z) - 1 for z in cl.cell.izp]
+            bulkpot(self.madelung.amad, dq, iz_bas, sys.atoms, self.iz_rec)
+        elif self.amad_imp is not None:
+            bulk_charge = np.array([
+                sys.atoms[t].potential.ql[0].sum()
+                - sys.atoms[t].element.valence for t in range(cl.nbulk)])
+            imppot(self.amad_imp, dq, bulk_charge, cl.chargetrf_type,
+                   sys.atoms, self.iz_rec, cl.nbulk)
+        else:
+            vmix = 1.0
+            ch = self.cfg.namelists.get("charge")
+            if ch is not None and ch.has("vmix"):
+                vmix = float(ch.get_scalar("vmix"))
+            surfpot(self.smad, dq, cl.natoms_layer, int(self.cfg.lattice.nlay),
+                    sys.atoms, self.iz_rec, cl.nbulk, vmix=vmix,
+                    logger=g_logger)
 
     # ------------------------------------------------------------------
     def engine(self) -> str:

@@ -27,9 +27,17 @@ fragments (``haydock_kernels.pack_table`` at width d, built once per table
 and cached); ``haydock_kernels.spmv_packed_ref`` multiplies through them
 as the fragments combine, so the CPU tests hold the packing against the
 plain product.  A tile is :func:`rows_per_tile` rows of one start block, and
-the Gram partials are per tile.  Where the tables of all types do not fit
-shared memory (two types at d = 18), the kernel walks the slot quads in
-chunks (:func:`chunks`).
+the Gram partials are per tile; the blocks draw tiles from a counter
+(``haydock_kernels._ticket``), so that one slow tile holds up no block.
+Where the tables of all types do not fit shared memory (two types at
+d = 18), the kernel walks the slot quads in chunks (:func:`chunks`).
+
+An impurity's combined row table ``[hall; ee]`` (one type per atom of its
+local zone, then the species) takes a route of its own, planned once per
+operator by :func:`local_zone`: the row tiles that hold the zone read the
+combined tables from global memory, and every other tile the shared-memory
+route on tables compacted to the types present there.  The plain version
+takes the combined table as it is.
 
 Dispatch: a CPU tensor goes to :func:`block_step_ref` (gather + einsum); a
 CUDA tensor launches the kernel or raises.  The wrapper counts its launches
@@ -47,7 +55,7 @@ import torch
 
 from . import cuda_build
 from .haydock_kernels import _check, _ptr, _raise_on, _route, _stream, \
-    block_spmv, pack_table, packed_table
+    _ticket, block_spmv, pack_table, packed_table
 
 TILE_PAIRS = 288  # (row, column) pairs of a tile (= TILE_PAIRS in the .cu)
 WIDTHS = (9, 18)
@@ -83,9 +91,10 @@ def gram_partials(p: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def block_step_ref(tab, iz, cols, x, onsite=None, izo=None, p=None,
-                   add=None, gram: bool = False, pad: bool = False
-                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain version of :func:`block_step`: gather + einsum."""
+                   add=None, gram: bool = False, pad: bool = False,
+                   zone=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of :func:`block_step`: gather + einsum (``zone``, the
+    kernel's route, changes nothing here)."""
     kk = cols.shape[0]
     y = block_spmv(tab, iz, cols, x)
     if onsite is not None:
@@ -106,6 +115,53 @@ def pack_onsite(onsite: torch.Tensor) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
+# the route of a table with a local zone
+class LocalZone:
+    """K4's plan for a row table whose first ``nmax`` rows are per-atom
+    (an impurity's local zone in the combined table ``[hall; ee]``).
+
+    The first ``nl`` rows, ``nmax`` rounded up to whole row tiles, read the
+    tables as they are.  The rows from ``nl`` on read tables compacted to
+    the types they use: ``types`` (sorted) of the row table with ``iz``
+    renumbered into it, ``otypes`` of the onsite table with ``izo``
+    (both 0 below ``nl``, where they are not read)."""
+
+    def __init__(self, nl, types, iz, otypes, izo):
+        self.nl, self.types, self.iz = nl, types, iz
+        self.otypes, self.izo = otypes, izo
+
+    def pack(self, tab: torch.Tensor) -> torch.Tensor:
+        """The packed rows of ``tab`` that the tiles past the zone read."""
+        return pack_table(tab[self.types])
+
+    def pack_onsite(self, onsite: torch.Tensor) -> torch.Tensor:
+        return pack_onsite(onsite[self.otypes])
+
+
+def local_zone(nmax: int, d: int, iz: torch.Tensor, ntab: int,
+               izo: torch.Tensor, nto: int) -> Optional[LocalZone]:
+    """The plan of :class:`LocalZone` for ``nmax`` per-atom rows at width
+    ``d``, a row table of ``ntab`` types indexed by ``iz`` and an onsite
+    table of ``nto`` types indexed by ``izo``; None without a zone."""
+    if nmax <= 0:
+        return None
+    nl = -(-nmax // rows_per_tile(d)) * rows_per_tile(d)
+
+    def compact(idx, n):
+        types = torch.unique(idx[nl:].long())
+        renum = torch.zeros(n, dtype=torch.int32, device=idx.device)
+        renum[types] = torch.arange(types.numel(), dtype=torch.int32,
+                                    device=idx.device)
+        out = renum[idx.long()]
+        out[:nl] = 0
+        return types, out.contiguous()
+
+    types, iz_b = compact(iz, ntab)
+    otypes, izo_b = compact(izo, nto)
+    return LocalZone(nl, types, iz_b, otypes, izo_b)
+
+
+# ----------------------------------------------------------------------
 # build and load
 def build_library() -> str:
     """Compile ``csrc/block_step.cu`` into ``_build/libblockstep.so``;
@@ -119,7 +175,7 @@ def _library() -> ctypes.CDLL:
         build_library()
     lib = ctypes.CDLL(LIBRARY)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.block_step.argtypes = [ci] + [vp] * 10 + [ci] * 6 + [vp]
+    lib.block_step.argtypes = [ci] + [vp] * 15 + [ci] * 9 + [vp]
     lib.block_step.restype = ci
     lib.block_step_chunks.argtypes = [ci] * 6
     lib.block_step_chunks.restype = ci
@@ -146,16 +202,18 @@ def chunks(d: int, ntype: int, nto: int, nslots: int, onsite: bool,
 # ----------------------------------------------------------------------
 # wrapper
 def block_step(tab, iz, cols, x, onsite=None, izo=None, p=None, add=None,
-               gram: bool = False, pad: bool = False
+               gram: bool = False, pad: bool = False,
+               zone: Optional[LocalZone] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K4: ``y = add + H x + O p`` and the Gram partials of ``p^H y``.
 
     tab (ntype, nslots, d, d) complex128, iz (kk,) int32, cols (kk, nslots)
     int32 with sentinel kk, x (kk+1, d, C) complex128 whose row kk is zero;
     optional onsite (nto, d, d) with izo (kk,) int32, p (kk+1, d, C) (needed
-    by the onsite term and the Gram), add (kk, d, C).  Returns y
-    (kk + pad, d, C), its row kk zero with ``pad``, and with ``gram`` the
-    partials (nrowblk, R, d, d) complex128, else None.
+    by the onsite term and the Gram), add (kk, d, C), and the route
+    ``zone`` of a table with a local zone (:func:`local_zone` of these
+    iz and izo).  Returns y (kk + pad, d, C), its row kk zero with ``pad``,
+    and with ``gram`` the partials (nrowblk, R, d, d) complex128, else None.
     """
     if _route(x) == "cpu":
         return block_step_ref(tab, iz, cols, x, onsite, izo, p, add, gram,
@@ -189,6 +247,19 @@ def block_step(tab, iz, cols, x, onsite=None, izo=None, p=None, add=None,
     lib = _library()
     packed = packed_table(tab, pack_table)
     packed_on = None if onsite is None else packed_table(onsite, pack_onsite)
+    # the local zone's tables (in global memory) and the compacted ones
+    loc = (None,) * 4
+    ntl, ntol, nl = 0, 0, 0
+    if zone is not None:
+        _check(zone.iz, "zone.iz", torch.int32, (kk,), dev)
+        loc = (packed, iz, packed_on, izo)
+        ntl, ntol, nl = ntype, nto, zone.nl
+        packed, iz, ntype = packed_table(tab, zone.pack), zone.iz, \
+            zone.types.numel()
+        if onsite is not None:
+            _check(zone.izo, "zone.izo", torch.int32, (kk,), dev)
+            packed_on, izo, nto = packed_table(onsite, zone.pack_onsite), \
+                zone.izo, zone.otypes.numel()
     y = torch.empty((kk + pad, d, c), dtype=z, device=dev)
     g = (torch.empty((nrowblk(kk, d), c // d, d, d), dtype=z, device=dev)
          if gram else None)
@@ -196,8 +267,9 @@ def block_step(tab, iz, cols, x, onsite=None, izo=None, p=None, add=None,
     with torch.cuda.device(dev):
         err = lib.block_step(
             d, _ptr(packed), _ptr(iz), _ptr(cols), _ptr(x), opt(packed_on),
-            opt(izo), opt(p), opt(add), _ptr(y), opt(g), ntype, nto, nslots,
-            kk, int(pad), c, _stream(dev))
+            opt(izo), opt(p), opt(add), _ptr(y), opt(g), *map(opt, loc),
+            _ptr(_ticket(dev, 2)), ntype, nto, ntl, ntol, nl, nslots, kk,
+            int(pad), c, _stream(dev))
     _raise_on(err, "block_step")
     block_step.launches += 1
     return y, g

@@ -17,7 +17,10 @@ Layout: ``psi`` is ``(kk+1, d, R d)``, the scalar path's ``(kk+1, 9, C)``
 with the R start blocks' d columns side by side (``psi[i, b, r d + c]`` is
 the JAX package's ``psi[r, i, b, c]``); row kk is zero.  :func:`port_layout`
 converts.  The tables keep the JAX package's layout:
-``hs (ntype, nslots, d, d)``, ``iz (kk,)``, ``cols (kk, nslots)``.
+``hs (ntype, nslots, d, d)``, ``iz (kk,)``, ``cols (kk, nslots)``.  An
+impurity's ``hs`` is the combined row table ``[hall; ee]`` (its ``_spmv18``
+semantics): ``iz`` indexes its rows, the first ``nmax`` of them per-atom,
+and ``iz_onsite`` the species of the onsite tables.
 """
 
 from __future__ import annotations
@@ -43,10 +46,12 @@ class BlockOperator(nn.Module):
 
     Non-HoH: ``H psi = hs psi + lsham psi``.  HoH: ``H psi = hs psi -
     hso (hs psi) + (enim + lsham) psi``; ``-hso`` and ``enim + lsham`` are
-    built here once per operator."""
+    built here once per operator.  With ``nmax`` per-atom rows in front of
+    ``hs``, K4 takes the route of :func:`~.block_kernels.local_zone`,
+    planned once per device."""
 
     def __init__(self, hs, iz, cols, lsham, iz_onsite=None, hoh: bool = False,
-                 hso=None, enim=None):
+                 hso=None, enim=None, nmax: int = 0):
         super().__init__()
         z = torch.complex128
         as_c = lambda a: torch.as_tensor(  # noqa: E731
@@ -54,6 +59,8 @@ class BlockOperator(nn.Module):
         as_i = lambda a: torch.as_tensor(  # noqa: E731
             np.ascontiguousarray(a), dtype=torch.int32)
         self.hoh = bool(hoh)
+        self.nmax = int(nmax)
+        self._zone = None
         self.register_buffer("hs", as_c(hs))
         self.register_buffer("iz", as_i(iz))
         self.register_buffer("cols", as_i(cols))
@@ -71,18 +78,29 @@ class BlockOperator(nn.Module):
     def kk(self) -> int:
         return self.cols.shape[0]
 
+    def zone(self) -> Optional[bk.LocalZone]:
+        """K4's route for the local zone on the tables' device, or None."""
+        dev = self.iz.device
+        if self._zone is None or self._zone[0] != dev:
+            self._zone = (dev, bk.local_zone(
+                self.nmax, self.hs.shape[-1], self.iz, self.hs.shape[0],
+                self.izo, self.onsite.shape[0]))
+        return self._zone[1]
+
     def forward(self, psi: torch.Tensor, gram: bool = False,
                 plain: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """``(H psi, Gram partials of psi^H H psi or None)``: one K4 launch,
         or two with HoH; the plain versions with ``plain``."""
         step = bk.block_step_ref if plain else bk.block_step
+        zone = None if plain else self.zone()
         if not self.hoh:
             return step(self.hs, self.iz, self.cols, psi, self.onsite,
-                        self.izo, psi, gram=gram)
-        hpsi, _ = step(self.hs, self.iz, self.cols, psi, pad=True)
+                        self.izo, psi, gram=gram, zone=zone)
+        hpsi, _ = step(self.hs, self.iz, self.cols, psi, pad=True,
+                       zone=zone)
         return step(self.hso_neg, self.iz, self.cols, hpsi, self.onsite,
-                    self.izo, psi, add=hpsi[:self.kk], gram=gram)
+                    self.izo, psi, add=hpsi[:self.kk], gram=gram, zone=zone)
 
 
 def gram_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

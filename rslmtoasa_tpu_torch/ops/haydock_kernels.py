@@ -345,13 +345,13 @@ def spmv_dot_half(hs, iz, cols, psi, half: str) -> None:
 _TICKETS: dict = {}
 
 
-def _ticket(dev: torch.device) -> torch.Tensor:
-    """K2's last-block ticket counter for the current stream of ``dev``:
-    zeroed once, and left zero by every launch (its last block resets
-    it), so launches in stream order share it."""
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+def _ticket(dev: torch.device, n: int = 1) -> torch.Tensor:
+    """``n`` int32 ticket counters for the current stream of ``dev`` (K2'
+    takes one, K4 two): zeroed once, and left zero by every launch (its
+    last block resets them), so launches in stream order share them."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream, n)
     if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+        _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=dev)
     return _TICKETS[key]
 
 

@@ -10,7 +10,10 @@ item 7).
 
 The tables come as host arrays (complex128, the JAX package's layouts),
 ``psi0`` as a tensor in the port's layout ``(kk+1, d, R d)``; results come
-back as host arrays in the JAX package's layouts.
+back as host arrays in the JAX package's layouts.  An impurity's tables
+are the combined rows ``[hall; ee]`` with ``iz`` the per-row index into
+them, ``iz_onsite`` the species of each row and ``nmax`` the per-atom
+rows in front; the spin sectors cut them like any table.
 """
 
 from __future__ import annotations
@@ -77,19 +80,20 @@ def _spin_assemble(xu, xd):
 
 def block_lanczos_auto(hs, lsham, iz, cols, psi0: torch.Tensor, lld: int, *,
                        hoh: bool = False, hso=None, enim=None,
-                       plain: bool = False):
+                       iz_onsite=None, nmax: int = 0, plain: bool = False):
     """Block recursion of the R start blocks of ``psi0`` on its device, per
     spin sector where the problem decouples.  Returns host (a_b, b2_b) of
     shape (lld, R, 18, 18) (or d wide for a d-wide ``psi0``)."""
     sec = _spin_sectors(hs, lsham, hso, enim, psi0)
     if sec is not None:
         outs = [block_lanczos_auto(h_, l_, iz, cols, p_, lld, hoh=hoh,
-                                   hso=o_, enim=e_, plain=plain)
+                                   hso=o_, enim=e_, iz_onsite=iz_onsite,
+                                   nmax=nmax, plain=plain)
                 for (h_, l_, o_, e_, p_) in sec]
         return (_spin_assemble(outs[0][0], outs[1][0]),
                 _spin_assemble(outs[0][1], outs[1][1]))
-    op = BlockOperator(hs, iz, cols, lsham, hoh=hoh, hso=hso,
-                       enim=enim).to(psi0.device)
+    op = BlockOperator(hs, iz, cols, lsham, iz_onsite=iz_onsite, hoh=hoh,
+                       hso=hso, enim=enim, nmax=nmax).to(psi0.device)
     a_b, b2_b = block_lanczos(op, psi0, lld, plain=plain)
     return a_b.cpu().numpy(), b2_b.cpu().numpy()
 
@@ -105,6 +109,7 @@ def _diverged(mu: np.ndarray) -> bool:
 def chebyshev_moments_auto(hs, lsham, iz, cols, psi0: torch.Tensor,
                            lld: int, a: float, b: float, *,
                            hoh: bool = False, hso=None, enim=None,
+                           iz_onsite=None, nmax: int = 0,
                            guard: bool = True,
                            plain: bool = False) -> np.ndarray:
     """Chebyshev block moments of the start blocks of ``psi0`` on its
@@ -115,12 +120,14 @@ def chebyshev_moments_auto(hs, lsham, iz, cols, psi0: torch.Tensor,
     if sec is not None:
         outs = [chebyshev_moments_auto(h_, l_, iz, cols, p_, lld, a, b,
                                        hoh=hoh, hso=o_, enim=e_,
+                                       iz_onsite=iz_onsite, nmax=nmax,
                                        guard=False, plain=plain)
                 for (h_, l_, o_, e_, p_) in sec]
         mu = _spin_assemble(outs[0], outs[1])
     else:
-        op = BlockOperator(hs, iz, cols, lsham, hoh=hoh, hso=hso,
-                           enim=enim).to(psi0.device)
+        op = BlockOperator(hs, iz, cols, lsham, iz_onsite=iz_onsite,
+                           hoh=hoh, hso=hso, enim=enim,
+                           nmax=nmax).to(psi0.device)
         mu = chebyshev_moments(op, psi0, lld, a, b, plain=plain).cpu().numpy()
     if not np.isfinite(mu).all() or (guard and _diverged(mu)):
         g_logger.fatal("Chebyshev moments did not converge. Check energy "

@@ -13,8 +13,11 @@ import pytest
 import torch
 
 from rslmtoasa_tpu_torch.models.presets import (
+    IMPURITIES,
     build_synthetic_b2,
     build_synthetic_bcc,
+    build_synthetic_impurity,
+    build_synthetic_surface,
 )
 from rslmtoasa_tpu_torch.ops import block_kernels as bk
 from rslmtoasa_tpu_torch.ops import haydock_kernels as hk
@@ -309,6 +312,65 @@ def test_block_recursions_match_plain(block_system, card, hoh):
     assert bk.block_step.launches - n == per * (lld + 1)
     mu0 = chebyshev_moments(op, psi0, lld, 2.5 / 1.7, -0.25, plain=True)
     assert (mu - mu0).abs().max() <= 1e-11
+
+
+# ----------------------------------------------------------------------
+# K4 on the slab and on the impurity's combined table
+@pytest.fixture(scope="module")
+def embedded(card):
+    """The slab (four types: the chunked route) and the impurity with one
+    and three impurities (the local zone's route), with the HoH tables."""
+    kw = dict(rc=20.0, nsp=2, hoh=True, lld=6, device="cpu")
+    return {"surface": build_synthetic_surface(**kw),
+            "impurity-1": build_synthetic_impurity(inclu=IMPURITIES[:1],
+                                                   **kw),
+            "impurity-3": build_synthetic_impurity(**kw)}
+
+
+def _embedded_operator(sys_, d, hoh, card):
+    blocks, blocks_o, iz_rows, iz_sp, nmax = sys_._spmv_tables()
+    hb, sl = sys_.ham, slice(0, d)
+    return BlockOperator(blocks[..., sl, sl], iz_rows, hb.cols,
+                         hb.lsham[..., sl, sl], iz_onsite=iz_sp, hoh=hoh,
+                         hso=blocks_o[..., sl, sl] if hoh else None,
+                         enim=hb.enim[..., sl, sl] if hoh else None,
+                         nmax=nmax).to(card)
+
+
+@pytest.mark.parametrize("hoh", [False, True])
+@pytest.mark.parametrize("d", [9, 18])
+@pytest.mark.parametrize("name", ["surface", "impurity-1", "impurity-3"])
+def test_block_step_kernel_on_embedded(embedded, card, name, d, hoh):
+    """K4 against its plain version on the combined table (the local zone
+    from global memory, the rest compacted) and on the slab, three start
+    blocks; with HoH its first launch alone too."""
+    op = _embedded_operator(embedded[name], d, hoh, card)
+    zone = op.zone()
+    assert (zone is None) == (name == "surface")
+    psi = _blocks(op.kk, d, 3, 16, card)
+    _k4_matches_plain(op, psi)
+    y, _ = bk.block_step(op.hs, op.iz, op.cols, psi, pad=True, zone=zone)
+    y0, _ = bk.block_step_ref(op.hs, op.iz, op.cols, psi, pad=True)
+    torch.cuda.synchronize()
+    assert (y - y0).abs().max() <= BAR * y0.abs().max()
+    assert not hk._ticket(card, 2).any()  # the tile counters, left zero
+    if zone is not None:  # the tiles past the zone: one type, one chunk
+        assert bk.chunks(d, zone.types.numel(), zone.otypes.numel(),
+                         op.cols.shape[1], True, True) == 1
+
+
+def test_impurity_block_recursion_on_card_matches_cpu(embedded, card):
+    """The three-impurity preset's block recursion through K4 against the
+    same on the CPU: 1e-12."""
+    sys_ = embedded["impurity-3"]
+    want = sys_.run_block()
+    sys_.device = card
+    try:
+        got = sys_.run_block()
+    finally:
+        sys_.device = torch.device("cpu")
+    for g, w in zip(got, want):
+        assert np.abs(g - w).max() <= BAR
 
 
 # ----------------------------------------------------------------------

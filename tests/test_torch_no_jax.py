@@ -25,6 +25,8 @@ names = [m.name for m in
          pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+assert {"rslmtoasa_tpu_torch.geometry.surface",
+        "rslmtoasa_tpu_torch.physics.madelung_surf"} <= set(names)
 
 from rslmtoasa_tpu_torch.ops.lanczos import (
     HaydockOperator, scalar_start_vectors)

@@ -9,9 +9,13 @@ build at once with nvcc into ``_checkout/`` (gitignored).  On the box-30 bcc
 preset with spin-orbit coupling (kk = 27000, 15 slots) each is checked
 against the plain version (1e-12) and timed with CUDA events in the order
 shipped, variants..., variants reversed, shipped: d = 18 with its Gram,
-without it, the SpMV alone (the padded form), and d = 9 with its Gram.
-Prints the card's name and power limit, each variant's registers and
-spills, and its mean times.  Run it from the repository's root.
+without it, the SpMV alone (the padded form), and d = 9 with its Gram;
+then d = 18 with its Gram, three start blocks, on the impurity preset (its
+local zone's route), on the same rows all of the host's type (no zone)
+and on the slab (four types in chunks), as ``chip_smoke.py`` phase 8
+builds them.  Prints the card's name and power limit, each variant's
+registers and spills, and its mean times.  Run it from the repository's
+root.
 """
 
 import os
@@ -23,8 +27,13 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 sys.path.insert(0, os.getcwd())
+import numpy as np  # noqa: E402
 from chip_smoke import PRESET, cuda_ms, random_chains  # noqa: E402
-from rslmtoasa_tpu_torch.models.presets import build_synthetic_bcc  # noqa
+from rslmtoasa_tpu_torch.models.presets import (  # noqa: E402
+    build_synthetic_bcc,
+    build_synthetic_impurity,
+    build_synthetic_surface,
+)
 from rslmtoasa_tpu_torch.ops import block_kernels as bk  # noqa: E402
 from rslmtoasa_tpu_torch.ops import cuda_build  # noqa: E402
 from rslmtoasa_tpu_torch.ops.block_lanczos import BlockOperator  # noqa
@@ -79,6 +88,21 @@ def main(specs):
         "d18 spmv only": lambda: bk.block_step(op18.hs, op18.iz, op18.cols,
                                                psi[18], pad=True),
         "d9 gram": lambda: ops[9](psi[9], gram=True)}
+    # the impurity's combined table, the same rows without a zone, the slab
+    imp = build_synthetic_impurity(device="cpu", nsp=2, lld=16)
+    slab = build_synthetic_surface(device="cpu", nsp=2, lld=16)
+    hb, kk = imp.ham, imp.cluster.kk
+    blocks, _, iz_rows, iz_sp, nmax = imp._spmv_tables()
+    more = {"impurity": BlockOperator(blocks, iz_rows, hb.cols, hb.lsham,
+                                      iz_onsite=iz_sp, nmax=nmax),
+            "impurity rows, no zone": BlockOperator(
+                hb.ee[:1], np.zeros(kk, np.int32), hb.cols, hb.lsham[:1]),
+            "slab": BlockOperator(slab.ham.ee, slab.ham.iz, slab.ham.cols,
+                                  slab.ham.lsham)}
+    for what, op in more.items():
+        op = ops[what] = op.to(dev)
+        psi[what] = random_chains(op.kk, 54, 11, dev, d=18)
+        forms[f"{what} R=3"] = (lambda op=op, p=psi[what]: op(p, gram=True))
     ref = {d: ops[d](psi[d], gram=True, plain=True) for d in ops}
     times = {n: {f: [] for f in forms} for n in libs}
     for name in list(libs) + list(libs)[::-1]:
@@ -90,7 +114,7 @@ def main(specs):
             for got, want in ((y, ref[d][0]), (g, ref[d][1])):
                 err = float((got - want).abs().max())
                 if err > 1e-12 * float(want.abs().max()):
-                    raise RuntimeError(f"{name} d={d}: error {err}")
+                    raise RuntimeError(f"{name} {d}: error {err}")
         for form, fn in forms.items():
             times[name][form].append(cuda_ms(fn))
     for name, by_form in times.items():
