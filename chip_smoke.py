@@ -81,6 +81,22 @@ code is then non-zero):
    two runs within the ql bar, and the solver on got's inputs repeating
    got's etot), also after one iteration; the seconds per iteration of
    every timer section, ``madelung-surface`` among them.
+9. exchange: the box-30 bcc preset as an exchange run
+   (``presets.synthetic_exchange``: the onsite pair of atom 1 and one pair
+   in each of its first five shells, R = 21 live start blocks, ``nsp=2``
+   with spin-orbit coupling, lld 20, 2 510 energy points): K4 against its
+   plain version at C = 378 (d = 18), timed beside its bound and
+   ``torch.sparse.mm``; the block, HoH and Chebyshev exchange runs through
+   K4 against ``plain=True`` on the card (chains within 1e-11, Jij/Dij/Aij
+   within 1e-8 mRy, every written file within 1e-6; the whole run's Green
+   function difference printed), with K4's launch counts, the timer
+   sections and the peak device memory; at box 10 (lld 12, 310 energy
+   points) the same runs with the two-index split, the auxiliary-GF Jij,
+   Gauss-Legendre (block), damping, inertia and the Jijk trio, the card
+   against the CPU at the same bars, and the Green functions of the card's
+   chains on the CPU within ``green_bar``: 1e-12 of scale plus lld - 1
+   times the CPU's own movement when the energies move by one unit in the
+   last place of the Hamiltonian's scale.
 
 All kernel sources build at once in phase 1, one nvcc each.
 
@@ -91,6 +107,7 @@ non-zero and prints no result.
 
 import contextlib
 import copy
+import dataclasses
 import inspect
 import io
 import json
@@ -108,7 +125,8 @@ PRESET = dict(rc=120.0, ndim=1_000_000, lld=20, box=30)
 NSTEP = 2
 # K4's forms on the slab (the chunked route) and on the impurity's
 # combined table (the local zone's route), phase 8
-K4_FORMS = ("block_step[surface]", "block_step[impurity]")
+K4_FORMS = ("block_step[surface]", "block_step[impurity]",
+            "block_step[exchange]")
 SOURCES = {"spmv_dot": "rslmtoasa_tpu_torch/csrc/haydock.cu",
            "spmv_dot_pipelined": "rslmtoasa_tpu_torch/csrc/haydock.cu",
            "update_norm": "rslmtoasa_tpu_torch/csrc/haydock.cu",
@@ -147,6 +165,13 @@ CHEB_BARS = dict(etot=3e-9, fermi=3e-9, ql=1e-9, mom=1e-10)
 NSTEP_BARS = {"block": SCF_BARS, "block-hoh": SCF_BARS,
               "chebyshev": CHEB_BARS}
 ITERS = 20
+# phase 9: box 10's energy points for the card against the CPU (no mesh
+# energy lies on a band centre C there, where Jijk's P / P0 is 0 / 0) and
+# its depth (the CPU's plain K4 at R = 21 takes ~1 s a launch), and the
+# timed launches of K4's plain version and the library call at R = 21
+XC_SMALL_NE = 300
+XC_SMALL_LLD = 12
+XC_ITERS = 5
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): FP64 on the tensor cores,
 # FP64 on the vector units, HBM3 bandwidth
 FP64_TENSOR_FLOPS = 67e12
@@ -178,10 +203,10 @@ def cuda_ms(fn, iters=ITERS):
     return start.elapsed_time(stop) / iters
 
 
-def in_turns(plain, kernel):
+def in_turns(plain, kernel, iters=ITERS):
     """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
-    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), \
-        cuda_ms(plain)
+    p1, k1, k2, p2 = (cuda_ms(fn, iters) for fn in (plain, kernel, kernel,
+                                                     plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -637,6 +662,276 @@ def embedded_phase(dev, records, every, sizes=EMBEDDED,
     say(8, f"bars unmet: {len(unmet)}" + "".join(f"; {u}" for u in unmet)
         + f"; phase 8 took {time.perf_counter() - t0:.1f} s")
     check(not misses, "; ".join(misses))
+
+
+def _last_place(token):
+    """The unit of a printed number's last digit: 1e-5 for '1.70886'."""
+    mant, _, exp = token.lower().partition("e")
+    return 10.0 ** (int(exp or 0) - len(mant.partition(".")[2]))
+
+
+def files_close(d1, d2):
+    """Two runs' output directories: the same files (and subdirectories),
+    the same words, every number within 1e-6 (relative above one) or one
+    unit of its last printed digit.  Returns (files, the largest
+    difference); a miss fails the phase."""
+    names = sorted(os.listdir(d1))
+    check(names == sorted(os.listdir(d2)), f"files {names} in both")
+    nfiles, worst = 0, 0.0
+    for f in names:
+        p1, p2 = os.path.join(d1, f), os.path.join(d2, f)
+        if os.path.isdir(p1):
+            n, w = files_close(p1, p2)
+            nfiles, worst = nfiles + n, max(worst, w)
+            continue
+        nfiles += 1
+        with open(p1) as f1, open(p2) as f2:
+            t1, t2 = f1.read().split(), f2.read().split()
+        check(len(t1) == len(t2), f"{f}: the same number of words")
+        for a, b in zip(t1, t2):
+            if a == b:
+                continue
+            x, y = float(a), float(b)
+            bar = max(1e-6 * max(1.0, abs(x)), 1.000001 * _last_place(a))
+            check(abs(x - y) <= bar, f"{f}: {a} vs {b}")
+            worst = max(worst, abs(x - y))
+    return nfiles, worst
+
+
+def green_bar(xc, em):
+    """``xc.gij_full`` from ``xc.intersite_gf(em)`` and its bar: 1e-12 of
+    its scale plus lld - 1 times its largest movement when the energies
+    move by one unit in the last place of the Hamiltonian's scale (the
+    chains' largest |a| + 2 |b|, or the Chebyshev window's bound on the
+    spectrum), either way: each of the continued fraction's lld - 1
+    inverses rounds like such a move.  A real-axis Green function has
+    poles, near which two engines' inverses of the same chains land more
+    than 1e-12 of scale apart."""
+    if hasattr(xc, "mu"):
+        lo, hi = em.energy_min, em.energy_max
+        scale = (hi - lo) / 1.7 + abs(hi + lo) / 2
+    else:
+        scale = np.abs(xc.a_b).max() + 2 * np.abs(xc.b_b).max()
+    xc.intersite_gf(em)
+    want = xc.gij_full.clone()
+    spread = torch.zeros_like(want.real)
+    d = 2.0**-52 * (np.abs(em.ene).max() + scale)
+    for sgn in (1.0, -1.0):
+        xc.intersite_gf(dataclasses.replace(em, ene=em.ene + sgn * d))
+        spread = torch.maximum(spread, (xc.gij_full - want).abs())
+    lld = xc.cfg.control.lld
+    return want, 1e-12 * want.abs().max() + (lld - 1) * spread
+
+
+def exchange_phase(dev, records, every, templates):
+    """Phase 9: K4 on the exchange run's R = 21 start blocks at box 30 (d =
+    18) against its plain version, timed beside its bound and
+    ``torch.sparse.mm``; the exchange runs (block, HoH, Chebyshev) through
+    K4 against ``plain=True`` on ``dev`` at box 30, and at box 10 against
+    the CPU with the trio, the two-index split, the auxiliary-GF Jij,
+    Gauss-Legendre, damping and inertia.  ``templates`` are phase 7's bcc
+    systems by box.  Fills ``records["block_step[exchange]"]``."""
+    from rslmtoasa_tpu_torch.models.exchange import (
+        ExchangeCalculation,
+        pair_chains,
+        trio_pairs,
+    )
+    from rslmtoasa_tpu_torch.models.presets import synthetic_exchange
+    from rslmtoasa_tpu_torch.ops import block_kernels as bk
+    from rslmtoasa_tpu_torch.ops.block_lanczos import BlockOperator
+    from rslmtoasa_tpu_torch.physics.energy_mesh import EnergyMesh
+    from rslmtoasa_tpu_torch.utils.timer import g_timer
+
+    t0 = time.perf_counter()
+    name = "block_step[exchange]"
+    full = synthetic_exchange(copy.deepcopy(templates[30]))
+    small = synthetic_exchange(copy.deepcopy(templates[10]))
+    small.cfg.energy.channels_ldos = XC_SMALL_NE
+    small.cfg.control.lld = XC_SMALL_LLD
+    pairs = full.cfg.lattice.ijpair
+    r = len(pair_chains(pairs - 1))
+    kk = full.cluster.kk
+    check(pairs.shape == (6, 2) and r == 21
+          and small.cfg.lattice.ijpair.shape == (6, 2), "phase 9 shapes")
+    say(9, f"box 30: pairs {pairs.tolist()}, R={r} live start blocks "
+           f"(the JAX package recurs {4 * len(pairs)}); box 10 pairs "
+           f"{small.cfg.lattice.ijpair.tolist()}")
+
+    # K4 at the exchange run's shape ----------------------------------
+    hb = full.ham
+    nblocks = int((hb.cols < kk).sum())
+    op = BlockOperator(hb.ee, hb.iz, hb.cols, hb.lsham).to(dev)
+    psi = random_chains(kk, 18 * r, 31, dev, d=18)
+    err = k4_check(bk, op, psi, f"exchange R={r}", records, name)
+    t_k, t_p = in_turns(lambda: op(psi, gram=True, plain=True),
+                        lambda: op(psi, gram=True), XC_ITERS)
+    flops, moved = k4_work(op, psi, nblocks, bk.nrowblk(kk, 18))
+    ops_s, bytes_s = flops / FP64_TENSOR_FLOPS, moved / HBM_BYTES_S
+    bound = 1e3 * max(ops_s, bytes_s)
+    by = "operations" if ops_s >= bytes_s else "bytes"
+    csr = csr_operator(op.hs, op.iz, op.cols, op.onsite, op.izo)
+    flat = psi.view(18 * (kk + 1), 18 * r)
+    y0, _ = op(psi, plain=True)
+    e, scale = rel_err(torch.sparse.mm(csr, flat).view(kk, 18, 18 * r), y0)
+    check(e <= 1e-12 * scale, f"library SpMV exchange R={r}: {e}")
+    lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, flat), XC_ITERS)
+    records[name].update(ms=t_k, plain_ms=t_p, bound_ms=bound, bound_by=by,
+                         library_ms=lib_ms)
+    say(9, f"K4 d=18 R={r} (C={18 * r}): err {err:.3e}, reruns "
+           f"bit-identical; kernel {t_k:.4f} ms plain {t_p:.4f} ms bound "
+           f"{bound:.4f} ms ({by}, {100 * bound / t_k:.1f}% of it); "
+           f"{flops:.4e} flop {flops / t_k / 1e9:.2f} TFLOP/s, {moved:.4e} B;"
+           f" library torch.sparse.mm {lib_ms:.4f} ms; per start block "
+           f"{t_k / r:.4f} ms (box 30 R=1, phase 6: "
+           f"{records['block_step']['ms']:.4f})")
+    del op, psi, csr, flat, y0
+    torch.cuda.empty_cache()
+
+    # the exchange runs -----------------------------------------------
+    def configured(tmpl, case, device, plain):
+        sys_ = copy.deepcopy(tmpl)
+        sys_.device, sys_.plain = torch.device(device), plain
+        sys_.cfg.control.recur = BLOCK_CASES[case]["recur"]
+        sys_.cfg.hamiltonian.hoh = BLOCK_CASES[case]["hoh"]
+        if sys_.cfg.control.recur == "chebyshev":
+            sys_.cfg.energy.energy_min, sys_.cfg.energy.energy_max = WINDOW
+        return sys_
+
+    def exchange_run(sys_, work, pairs_=None):
+        """``ExchangeCalculation.run()`` of ``sys_`` into ``work``, the
+        kernels' counts zeroed just before it and read just after; its wall,
+        timer-section seconds and the card's peak memory."""
+        os.makedirs(work)
+        pairs_ = sys_.cfg.lattice.ijpair if pairs_ is None else pairs_
+        before = section_totals(g_timer)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in every.values():
+            fn.launches = 0
+        t1 = time.perf_counter()
+        xc = ExchangeCalculation(sys_, pairs_, work)
+        res = xc.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = {n: fn.launches for n, fn in every.items()}
+        spent = {k: v - before.get(k, 0.0)
+                 for k, v in section_totals(g_timer).items()
+                 if v - before.get(k, 0.0) > 0.0005}
+        return dict(xc=xc, res=res, wall=wall, launches=launches,
+                    spent=spent, peak=torch.cuda.max_memory_allocated(dev),
+                    dir=work)
+
+    def held(pair, got, ref, green_ref=None):
+        """The chains within 1e-11 (their dead slots equal), Jij/Dij/Aij
+        within 1e-8 mRy, every written file within 1e-6; with
+        ``green_ref`` (a CPU run) also the Green functions of got's chains
+        on the CPU within :func:`green_bar`."""
+        gx, rx = got["xc"], ref["xc"]
+        names = ("mu",) if hasattr(gx, "mu") else ("a_b", "b_b")
+        dead = np.setdiff1d(np.arange(4 * len(gx.pairs)), gx.chains)
+        diffs = {}
+        for k in names:
+            g_, w_ = getattr(gx, k), getattr(rx, k)
+            diffs[k] = float(np.abs(g_ - w_).max())
+            check(diffs[k] <= 1e-11 * max(1.0, float(np.abs(w_).max())),
+                  f"{pair} {k}: {diffs[k]}")
+            check(np.array_equal(g_[:, dead], w_[:, dead]),
+                  f"{pair} {k} dead slots")
+        gs = float(rx.gij_full.abs().max())
+        diffs["gij/scale"] = float((gx.gij_full.cpu()
+                                    - rx.gij_full.cpu()).abs().max()) / gs
+        for q in ("jij", "dmi", "aij"):
+            diffs[q] = max(float(np.abs(np.asarray(a[q]) - np.asarray(b[q]))
+                                 .max()) for a, b in zip(got["res"],
+                                                         ref["res"]))
+            check(diffs[q] <= 1e-8, f"{pair} {q}: {diffs[q]}")
+        if green_ref is not None:
+            cx = copy.copy(green_ref)
+            for k in names:
+                setattr(cx, k, getattr(gx, k))
+            want, bar = green_bar(cx, EnergyMesh.build(cx.cfg.energy))
+            dg = (gx.gij_full.cpu() - want).abs()
+            diffs["green step/scale"] = float(dg.max() / want.abs().max())
+            diffs["green step/bar"] = float((dg / bar).max())
+            check(diffs["green step/bar"] <= 1.0, f"{pair}: the Green "
+                  f"functions of got's chains on the CPU: {diffs}")
+        nf, worst = files_close(ref["dir"], got["dir"])
+        diffs["files"] = worst
+        say(9, f"{pair}: " + ", ".join(f"|d {k}|={v:.3e}"
+                                       for k, v in diffs.items())
+            + f" ({nf} files)")
+
+    def reading(run, r_):
+        return (f"{r_['wall']:.3f} s, K4 launches "
+                f"{r_['launches']['block_step']}, peak "
+                f"{r_['peak'] / 2**30:.2f} GiB; " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in r_["spent"].items()))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for case, spec in BLOCK_CASES.items():
+            res = {}
+            for run, tmpl, device, plain in (
+                    ("cuda", full, dev, False),
+                    ("cuda-plain", full, dev, True),
+                    ("cuda-box10", small, dev, False),
+                    ("cpu-box10", small, "cpu", False)):
+                res[run] = r_ = exchange_run(
+                    configured(tmpl, case, device, plain),
+                    os.path.join(tmp, f"{case}-{run}"))
+                lld = tmpl.cfg.control.lld
+                k4 = (2 if spec["hoh"] else 1) * (
+                    lld + 1 if spec["recur"] == "chebyshev" else lld - 1)
+                k4 = k4 if run in ("cuda", "cuda-box10") else 0
+                check(r_["launches"] == dict({n: 0 for n in every},
+                                             block_step=k4),
+                      f"{case} {run} launches {r_['launches']}")
+                say(9, f"exchange {case} {run}: " + reading(run, r_))
+            say(9, f"exchange {case} cuda Jij (mRy): " + ", ".join(
+                f"({x['i'] + 1},{x['j'] + 1}) {x['jij']:.6f}"
+                for x in res["cuda"]["res"]))
+            if case == "block":
+                records[name]["launches"] = res["cuda"]["launches"][
+                    "block_step"]
+            held(f"{case} cuda vs cuda-plain", res["cuda"], res["cuda-plain"])
+            # every analysis at box 10, the card against the CPU
+            out = {}
+            for run in ("cuda-box10", "cpu-box10"):
+                xc = res[run]["xc"]
+                xc.calculate_exchange_twoindex()
+                out[run] = dict(aux=xc.calculate_jij_auxgreen(),
+                                damping=xc.calculate_gilbert_damping(),
+                                inertia=xc.calculate_moment_of_inertia())
+                if spec["recur"] == "block":
+                    wd, xc.workdir = xc.workdir, os.path.join(xc.workdir, "gl")
+                    os.makedirs(xc.workdir)
+                    xc.run_gauss_legendre()
+                    xc.workdir = wd
+            for q in out["cpu-box10"]:
+                d_ = float(np.abs(out["cuda-box10"][q]
+                                  - out["cpu-box10"][q]).max())
+                check(d_ <= 1e-8, f"{case} box 10 {q}: {d_}")
+            held(f"{case} cuda-box10 vs cpu-box10 (with the analyses)",
+                 res["cuda-box10"], res["cpu-box10"],
+                 green_ref=res["cpu-box10"]["xc"])
+            del res
+            torch.cuda.empty_cache()
+        # the trio route at box 10
+        trios = small.cfg.lattice.ijktrio
+        jijk = {}
+        for run, device in (("cuda", dev), ("cpu", "cpu")):
+            r_ = exchange_run(configured(small, "block", device, False),
+                              os.path.join(tmp, f"trio-{run}"),
+                              trio_pairs(trios))
+            jijk[run] = r_["xc"].calculate_jijk(trios)
+            jijk[run + "-dir"] = r_["dir"]
+        d_ = float(np.abs(jijk["cuda"] - jijk["cpu"]).max())
+        check(np.isfinite(jijk["cpu"]).all() and d_ <= 1e-8,
+              f"Jijk box 10: {d_}")
+        nf, worst = files_close(jijk["cpu-dir"], jijk["cuda-dir"])
+        say(9, f"Jijk trio {trios[0, :3].astype(int).tolist()} box 10 cuda vs"
+               f" cpu: |d|={d_:.3e} ({jijk['cpu'][0, :3].tolist()} meV/a.u. "
+               f"xx..xz), files {worst:.3e}")
+    say(9, f"phase 9 took {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -1185,11 +1480,14 @@ def main():
     say(7, f"bars unmet: {len(unmet)}"
         + "".join(f"; {u}" for u in unmet))
     check(not misses, "; ".join(misses))
-    del templates, soc
     torch.cuda.empty_cache()
 
     # 8. surface and impurity ----------------------------------------------
     embedded_phase(dev, records, every)
+
+    # 9. exchange -------------------------------------------------------
+    exchange_phase(dev, records, every, templates)
+    del templates, soc
     check("jax" not in sys.modules, "no JAX imported")
 
     kernels = [dict(name=n, route="cuda", source=SOURCES[n],
@@ -1198,7 +1496,7 @@ def main():
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"])
                for n, r in records.items()]
-    say(9, f"total {time.perf_counter() - t_start:.1f} s")
+    say(10, f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -8,12 +8,14 @@ Usage (reference ``source/os.f90 argument_parser`` :34-158 and
 
 Reads the namelist input and runs the self-consistent field of a bulk,
 surface or impurity cluster (``pre_processing`` ``none``, ``bravais``,
-``buildsurf``, ``newclubulk`` or ``newclusurf``; no ``processing`` and no
-``post_processing``), writes the reference's output files
-(totaldos.out, <El>_out.nml, report.out, ...), and prints the
-hierarchical timing report.  The recursion runs on ``device`` (default
-``cuda``; without a card that raises).  Every other ``&calculation``
-branch raises ``NotImplementedError``.
+``buildsurf``, ``newclubulk`` or ``newclusurf``), writing the reference's
+output files (totaldos.out, <El>_out.nml, report.out, ...), or with
+``post_processing='exchange'`` the exchange couplings of a bulk or surface
+cluster (jij.out, dij.out, aij.out, jtens.out and the two-index files, or
+jijk.out for ``njijk > 0``), and prints the hierarchical timing report.
+The recursion runs on ``device`` (default ``cuda``; without a card that
+raises).  Every other ``&calculation`` branch raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,6 +33,13 @@ VALID_PRE = {"none", "bravais", "buildsurf", "newclubulk", "newclusurf"}
 VALID_PROC = {"none", "sd"}
 VALID_POST = {"none", "exchange", "exchange_p2rs", "conductivity",
               "conductivity_p2rs", "paoflow2rs", "orbital_modern"}
+# the branches still to port, by the ROADMAP queue-1 item that ports them
+NOT_PORTED = {"sd": "item 12 (spin dynamics)",
+              "exchange_p2rs": "item 12 (PAOFLOW)",
+              "paoflow2rs": "item 12 (PAOFLOW)",
+              "orbital_modern": "item 12 (orbital moment)",
+              "conductivity": "item 11 (conductivity)",
+              "conductivity_p2rs": "item 11 (conductivity)"}
 
 
 def parse_args(argv):
@@ -78,21 +87,56 @@ def run_calculation(cfg: JobConfig, workdir: str = ".",
         if val not in ok:
             g_logger.error(f"invalid calculation stage {val!r}")
             return 1
-    if proc != "none" or post != "none":
-        raise NotImplementedError(
-            f"&calculation pre_processing={pre!r} processing={proc!r} "
-            f"post_processing={post!r}: only the SCF is ported; see "
-            "ROADMAP.md queue 1 for the other branches")
+    for val in (proc, post):
+        if val in NOT_PORTED:
+            raise NotImplementedError(
+                f"&calculation {val!r} is not ported yet: ROADMAP queue 1, "
+                f"{NOT_PORTED[val]}")
     if cfg.lattice.write_artifacts:
         raise NotImplementedError(
             "&lattice write_artifacts: the geometry exports are ROADMAP "
             "queue 1, item 14 (entry points)")
 
     from .models.bulk import BulkSystem
-    from .models.scf import SelfConsistency
 
     os.makedirs(workdir, exist_ok=True)
     sys_ = BulkSystem.build(cfg, workdir, device=device)
+    if post == "exchange":
+        run_exchange(sys_, workdir)
+    else:
+        run_scf(sys_, workdir, pre)
+    print(g_timer.report())
+    from .utils.alloc import g_alloc
+
+    print(g_alloc.report())
+    return 0
+
+
+def run_exchange(sys_, workdir: str):
+    """``post_processing='exchange'`` (JAX ``cli.py`` :130-147): the pairs
+    of ``&lattice ijpair`` and the two-index split, or with ``njijk > 0``
+    the three pairs of each ``ijktrio`` row and Jijk."""
+    from .models.exchange import ExchangeCalculation, trio_pairs
+
+    lat = sys_.cfg.lattice
+    if lat.njijk > 0:
+        xc = ExchangeCalculation(sys_, trio_pairs(lat.ijktrio), workdir)
+        xc.run()
+        xc.calculate_jijk(lat.ijktrio)
+    else:
+        if lat.ijpair is None:
+            raise ValueError("post_processing='exchange' needs &lattice "
+                             "njij > 0 and ijpair")
+        xc = ExchangeCalculation(sys_, lat.ijpair, workdir)
+        xc.run()
+        xc.calculate_exchange_twoindex()
+
+
+def run_scf(sys_, workdir: str, pre: str):
+    """The self-consistent field, with the post-SCF exports of
+    ``pre_processing='bravais'``."""
+    from .models.scf import SelfConsistency
+
     scf = SelfConsistency(sys_, workdir)
     state = scf.run()
     g_logger.info(
@@ -107,12 +151,6 @@ def run_calculation(cfg: JobConfig, workdir: str = ".",
         g_logger.warning("rs2paoham.dat not written: the PAOFLOW export "
                          "is not ported yet (ROADMAP queue 1, item 12)")
         scf.bands.calculate_orbital_quadrupoles(scf.last_g0, workdir)
-
-    print(g_timer.report())
-    from .utils.alloc import g_alloc
-
-    print(g_alloc.report())
-    return 0
 
 
 if __name__ == "__main__":

@@ -8,6 +8,8 @@ taken from any database file).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from ..atoms.potential import Element, Potential, SymbolicAtom
@@ -23,7 +25,7 @@ from ..config import (
     SelfCfg,
 )
 from ..utils.device import resolve_device
-from ..utils.namelist import Namelists, parse_namelists
+from ..utils.namelist import Namelists, parse_namelists, write_namelist
 
 
 def synthetic_bcc_atom(label: str = "X") -> SymbolicAtom:
@@ -251,3 +253,79 @@ def build_synthetic_impurity(rc: float = 220.0, inclu=IMPURITIES,
     return build_synthetic_embedded(
         synthetic_embedded_config("I", rc, lld, nsp, inclu=inclu), hoh,
         device)
+
+
+# ----------------------------------------------------------------------
+# the exchange configuration on the bcc preset
+EXCHANGE_SHELLS = 5  # neighbour shells of atom 1 with one pair each
+
+
+def exchange_pairs(cluster, nshell: int = EXCHANGE_SHELLS) -> np.ndarray:
+    """The onsite pair (1, 1) and one pair (1, j) per neighbour shell of
+    atom 1, nearest first: (nshell + 1, 2), 1-based.  j is the first atom
+    at the shell's distance in ``np.argsort`` order, as
+    ``tests/test_exchange.py`` picks its nn and 2nn."""
+    d = np.linalg.norm(cluster.cr_ang - cluster.cr_ang[0], axis=1)
+    order = np.argsort(d)
+    shells = np.unique(np.round(d[order], 6))[1:nshell + 1]
+    js = [int(order[np.argmax(np.isclose(d[order], r))]) for r in shells]
+    return np.array([[1, 1]] + [[1, j + 1] for j in js], dtype=np.int64)
+
+
+def synthetic_exchange(sys_, nshell: int = EXCHANGE_SHELLS):
+    """Make the bcc preset ``sys_`` (:func:`build_synthetic_bcc`) an
+    exchange run: ``post_processing='exchange'``, ``ijpair`` from
+    :func:`exchange_pairs` and one trio (atom 1, its nn, its 2nn; z
+    displacement) in ``ijktrio``.  ``njijk`` stays 0: set it to 1 for the
+    trio route.  Returns ``sys_``."""
+    cfg, lat = sys_.cfg, sys_.cfg.lattice
+    pairs = exchange_pairs(sys_.cluster, nshell)
+    cfg.calculation.post_processing = "exchange"
+    lat.njij, lat.ijpair = len(pairs), pairs
+    lat.njijk = 0
+    lat.ijktrio = np.array([[1.0, pairs[1, 1], pairs[2, 1], 0.0, 0.0, 1.0]])
+    return sys_
+
+
+def build_synthetic_exchange(nshell: int = EXCHANGE_SHELLS, **kw):
+    """:func:`build_synthetic_bcc` (keywords as there) as an exchange run
+    (:func:`synthetic_exchange`)."""
+    return synthetic_exchange(build_synthetic_bcc(**kw), nshell)
+
+
+def write_exchange_input(sys_, where: str) -> str:
+    """``input.nml`` of the exchange run of a spherical bcc preset
+    (:func:`synthetic_exchange`, no ``box``) and its element files, into the
+    directory ``where``; returns the input's path."""
+    from .scf import SelfConsistency
+
+    cfg = sys_.cfg
+    lat, en, ctl = cfg.lattice, cfg.energy, cfg.control
+    lattice = {"rc": lat.rc, "ndim": lat.ndim, "alat": lat.alat,
+               "wav": lat.wav, "crystal_sym": lat.crystal_sym,
+               "ntype": lat.ntype, "r2": lat.r2, "ct": [lat.ct[0]],
+               "njij": lat.njij, "ijpair": lat.ijpair}
+    if lat.njijk > 0:
+        lattice.update(njijk=lat.njijk, ijktrio=lat.ijktrio)
+    text = "".join([
+        write_namelist("calculation", {
+            "pre_processing": cfg.calculation.pre_processing,
+            "post_processing": cfg.calculation.post_processing}),
+        write_namelist("control", {
+            "calctype": ctl.calctype, "nsp": ctl.nsp, "lld": ctl.lld,
+            "recur": ctl.recur}),
+        write_namelist("lattice", lattice),
+        write_namelist("atoms", {"database": "", "label": cfg.atoms.labels}),
+        write_namelist("energy", {
+            "channels_ldos": en.channels_ldos, "energy_min": en.energy_min,
+            "energy_max": en.energy_max, "fermi": en.fermi}),
+        write_namelist("hamiltonian", {"hoh": cfg.hamiltonian.hoh}),
+    ])
+    path = os.path.join(where, "input.nml")
+    with open(path, "w") as fh:
+        fh.write(text)
+    SelfConsistency(sys_, workdir=where).save_checkpoints()
+    for at in sys_.atoms:
+        os.replace(os.path.join(where, f"{at.element.symbol}_out.nml"),
+                   os.path.join(where, f"{at.label}.nml"))
+    return path

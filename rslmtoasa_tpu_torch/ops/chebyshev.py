@@ -63,12 +63,13 @@ def lorentz_kernel(n: int, lam: float = 4.0) -> np.ndarray:
 
 
 def chebyshev_green(mu: np.ndarray, ene: np.ndarray, emin: float,
-                    emax: float, device) -> np.ndarray:
-    """Onsite Green functions of all rec atoms from block moments, computed
-    on ``device`` (``green.f90 chebyshev_green`` :1030-1115).
+                    emax: float, device, host: bool = True):
+    """Green functions of R chains (the rec atoms, or an exchange run's
+    pair chains) from block moments, computed on ``device`` (``green.f90
+    chebyshev_green`` :1030-1115).
 
     mu: (nmom, R, 18, 18); returns g0 (R, 18, 18, NE) complex128 on the
-    host.
+    host, or with ``host=False`` the tensor on ``device``.
     """
     dev = torch.device(device)
     nmom = mu.shape[0]
@@ -88,4 +89,4 @@ def chebyshev_green(mu: np.ndarray, ene: np.ndarray, emin: float,
     expf = -1j * torch.exp(-1j * n_idx[None, :] * acw[:, None])
     g0 = torch.einsum("en,nrab->rabe", expf, mu_ng)
     g0 = g0 / torch.sqrt(a**2 - (e - b) ** 2)
-    return g0.cpu().numpy()
+    return g0.cpu().numpy() if host else g0

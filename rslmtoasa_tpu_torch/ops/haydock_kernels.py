@@ -76,16 +76,27 @@ def _block_partials(contrib: torch.Tensor) -> torch.Tensor:
     return contrib.view(-1, ROWS_PER_BLOCK, c).sum(1)
 
 
+GATHER_BYTES = 1 << 31  # the plain SpMV's largest gather of psi[cols]
+
+
 def block_spmv(hs: torch.Tensor, iz: torch.Tensor, cols: torch.Tensor,
                psi: torch.Tensor) -> torch.Tensor:
-    """y[i] = sum_m hs[iz[i], m] @ psi[cols[i, m]]  ->  (kk, 9, C).
+    """y[i] = sum_m hs[iz[i], m] @ psi[cols[i, m]]  ->  (kk, d, C).
 
-    Plain gather + einsum, one einsum per type over that type's rows."""
+    Plain gather + einsum, one einsum per type over that type's rows, in
+    chunks of columns whose gather stays under :data:`GATHER_BYTES` (each
+    output column reads only its own input column)."""
+    kk, nslots = cols.shape
+    d, c = psi.shape[1], psi.shape[2]
+    step = max(1, GATHER_BYTES
+               // max(1, kk * nslots * d * psi.element_size()))
+    if step < c:
+        return torch.cat([block_spmv(hs, iz, cols, psi[..., s:s + step])
+                          for s in range(0, c, step)], dim=2)
     cols = cols.long()
     ntype = hs.shape[0]
     if ntype == 1:
         return torch.einsum("mab,imbc->iac", hs[0], psi[cols])
-    kk = cols.shape[0]
     y = psi.new_empty((kk,) + psi.shape[1:])
     iz = iz.long()
     for t in range(ntype):

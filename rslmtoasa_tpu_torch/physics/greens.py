@@ -60,15 +60,21 @@ def get_terminf(a_b: np.ndarray, b_b: np.ndarray
 
 def bgreen(a_b: np.ndarray, b_b: np.ndarray, a_inf: np.ndarray,
            b_inf: np.ndarray, ene: np.ndarray, device,
-           sym_term: bool = False) -> np.ndarray:
-    """Matrix continued-fraction onsite Green functions of all rec atoms,
-    computed on ``device``.
+           sym_term: bool = False, eta=None, host: bool = True):
+    """Matrix continued-fraction Green functions of R chains (the rec
+    atoms, or an exchange run's pair chains), computed on ``device``.
 
     a_b, b_b: (lld, R, 18, 18) block coefficients (b_b = sqrt(B^2));
     a_inf/b_inf: (R, 18, 18) terminators; ene: (NE,).  The inputs go to
     ``device`` once; each level of the fraction is one batched inverse over
-    (R, NE), its ``info`` checked once after the loop.  Returns g0
-    (R, 18, 18, NE) complex128 on the host.
+    (R, NE), its ``info`` checked once after the loop.
+
+    ``eta``, a scalar or one value per energy, shifts E in the continued
+    fraction (``p = (E + eta) I``) and in the terminator's diagonal, while
+    the terminator's square root stays at the real E (the imaginary-axis
+    path of ``block_green_ij_eta``, as the JAX package's ``bgreen``).
+    Returns g0 (R, 18, 18, NE) complex128 on the host, or with
+    ``host=False`` the tensor on ``device``.
     """
     dev = torch.device(device)
     z = torch.complex128
@@ -79,6 +85,9 @@ def bgreen(a_b: np.ndarray, b_b: np.ndarray, a_inf: np.ndarray,
     a_inf = as_dev(a_inf, torch.float64)
     b_inf = as_dev(b_inf, torch.float64)
     e = as_dev(ene, torch.float64)[None, :, None]  # (1, NE, 1)
+    # E + eta where the fraction and the terminator's diagonal take it
+    ep = e if eta is None else e + as_dev(
+        np.broadcast_to(eta, np.shape(ene)), z)[None, :, None]
 
     # ---- terminator initialisation (orbital-diagonal) ----------------
     if sym_term:
@@ -86,7 +95,7 @@ def bgreen(a_b: np.ndarray, b_b: np.ndarray, a_inf: np.ndarray,
         b_d = (0.5 * (b_inf[:, 0, 0] + b_inf[:, 9, 9]))[:, None, None]
         det = (e - (a_d + 2.0 * b_d)) * (e - (a_d - 2.0 * b_d))
         zoff = torch.sqrt(det.to(z))
-        diag = ((e - a_d - zoff) * 0.5).expand(-1, -1, ldim)
+        diag = ((ep - a_d - zoff) * 0.5).expand(-1, -1, ldim)
     else:
         widen = torch.ones(ldim, dtype=torch.float64, device=dev)
         widen[0] = 1.025  # s-orbitals widened (bgreen :1296-1304)
@@ -96,11 +105,11 @@ def bgreen(a_b: np.ndarray, b_b: np.ndarray, a_inf: np.ndarray,
         bi = torch.diagonal(b_inf, dim1=-2, dim2=-1)[:, None, :]
         det = (e - (ai + 2.0 * bi * widen)) * (e - (ai - 2.0 * bi * widen))
         zoff = torch.sqrt(det.to(z))
-        diag = (e - ai - zoff) * 0.5
+        diag = (ep - ai - zoff) * 0.5
     q = torch.diag_embed(diag)  # (R, NE, 18, 18)
 
     # ---- continued fraction down the chain ---------------------------
-    eye = e[..., None] * torch.eye(ldim, dtype=torch.float64, device=dev)
+    eye = ep[..., None] * torch.eye(ldim, dtype=torch.float64, device=dev)
     failed = torch.zeros((), dtype=torch.bool, device=dev)
     for l in range(lld - 2, -1, -1):
         # small-Q zeroing (bgreen :1315-1317)
@@ -113,4 +122,5 @@ def bgreen(a_b: np.ndarray, b_b: np.ndarray, a_inf: np.ndarray,
     if bool(failed):
         raise np.linalg.LinAlgError("bgreen: a continued-fraction level is "
                                     "singular")
-    return q.permute(0, 2, 3, 1).cpu().numpy()  # (R, 18, 18, NE)
+    g0 = q.permute(0, 2, 3, 1)  # (R, 18, 18, NE)
+    return g0.cpu().numpy() if host else g0

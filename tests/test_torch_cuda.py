@@ -1,6 +1,6 @@
 """The CUDA kernels (Haydock K1'-K3', block step K4) against their plain
-versions, and the Green functions against the same torch code on the CPU,
-on the card.
+versions, and the Green functions and the exchange pair recursion against
+the same torch code on the CPU, on the card.
 
 Marked ``gpu``: without a CUDA card every test skips (the check is made
 in the fixture, never at import).  On a machine with one, run
@@ -12,12 +12,18 @@ import numpy as np
 import pytest
 import torch
 
+from rslmtoasa_tpu_torch.models.exchange import (
+    ExchangeCalculation,
+    pair_start_vectors,
+)
 from rslmtoasa_tpu_torch.models.presets import (
     IMPURITIES,
     build_synthetic_b2,
     build_synthetic_bcc,
+    build_synthetic_exchange,
     build_synthetic_impurity,
     build_synthetic_surface,
+    exchange_pairs,
 )
 from rslmtoasa_tpu_torch.ops import block_kernels as bk
 from rslmtoasa_tpu_torch.ops import haydock_kernels as hk
@@ -406,3 +412,56 @@ def test_chebyshev_green_on_card_matches_cpu(b2_coefficients, card):
     want = chebyshev_green(mu, ene, -1.5, 1.0, "cpu")
     assert got.shape == want.shape == (2, 18, 18, 301)
     assert np.abs(got - want).max() <= BAR * np.abs(want).max()
+
+
+def test_bgreen_eta_on_card_matches_cpu(b2_coefficients, card):
+    """The 64 Gauss-Legendre nodes at one energy, one ``eta`` each."""
+    a_b, b_b, a_inf, b_inf, _ = b2_coefficients
+    x = 0.5 * (np.polynomial.legendre.leggauss(64)[0] + 1.0)
+    ene, eta = np.full(64, -0.07), 1j * (1.0 - x) / x
+    got = bgreen(a_b, b_b, a_inf, b_inf, ene, card, eta=eta)
+    want = bgreen(a_b, b_b, a_inf, b_inf, ene, "cpu", eta=eta)
+    assert np.abs(got - want).max() <= BAR * np.abs(want).max()
+
+
+# ----------------------------------------------------------------------
+# the exchange pair recursion
+@pytest.mark.parametrize("hoh", [False, True])
+def test_block_step_kernel_on_pair_start_blocks(block_system, card, hoh):
+    """K4 on the exchange run's start blocks (two sites per block, complex
+    phases; the onsite pair's block one site) and on H applied to them."""
+    pairs = exchange_pairs(block_system.cluster, 3) - 1
+    op = _block_operator(block_system, 18, hoh, card)
+    psi = pair_start_vectors(op.kk, pairs, card)
+    assert psi.shape[2] == 18 * 13
+    _k4_matches_plain(op, psi)
+    _k4_matches_plain(op, bk.block_step(op.hs, op.iz, op.cols, psi,
+                                        pad=True)[0])
+
+
+@pytest.mark.parametrize("recur", ["block", "chebyshev"])
+def test_pair_recursion_on_card_matches_cpu(card, recur, tmp_path):
+    """The exchange run through K4 on the card against the same on the
+    CPU: the chains within 1e-12, Jij/Dij/Aij within 1e-8 mRy."""
+    out = []
+    for device in (card, "cpu"):
+        sys_ = build_synthetic_exchange(nshell=3, rc=16.0, ndim=4000, lld=6,
+                                        nsp=2, device=device)
+        sys_.cfg.control.recur = recur
+        sys_.cfg.energy.channels_ldos = 300
+        sys_.cfg.energy.energy_min, sys_.cfg.energy.energy_max = -1.5, 1.0
+        wd = tmp_path / str(device)
+        wd.mkdir()
+        n = bk.block_step.launches
+        xc = ExchangeCalculation(sys_, sys_.cfg.lattice.ijpair, str(wd))
+        res = xc.run()
+        steps = 6 - 1 if recur == "block" else 6 + 1
+        assert bk.block_step.launches - n == (steps if device == card else 0)
+        out.append((xc, res))
+    (got, rg), (want, rw) = out
+    names = ("mu",) if recur == "chebyshev" else ("a_b", "b_b")
+    for k in names:
+        assert np.abs(getattr(got, k) - getattr(want, k)).max() <= BAR
+    for g, w in zip(rg, rw):
+        for k in ("jij", "dmi", "aij"):
+            assert np.abs(np.asarray(g[k]) - np.asarray(w[k])).max() <= 1e-8

@@ -26,7 +26,8 @@ names = [m.name for m in
 for name in names:
     importlib.import_module(name)
 assert {"rslmtoasa_tpu_torch.geometry.surface",
-        "rslmtoasa_tpu_torch.physics.madelung_surf"} <= set(names)
+        "rslmtoasa_tpu_torch.physics.madelung_surf",
+        "rslmtoasa_tpu_torch.models.exchange"} <= set(names)
 
 from rslmtoasa_tpu_torch.ops.lanczos import (
     HaydockOperator, scalar_start_vectors)
