@@ -91,12 +91,28 @@ code is then non-zero):
    within 1e-8 mRy, every written file within 1e-6; the whole run's Green
    function difference printed), with K4's launch counts, the timer
    sections and the peak device memory; at box 10 (lld 12, 310 energy
-   points) the same runs with the two-index split, the auxiliary-GF Jij,
+   points, the onsite pair, nn and 2nn: R = 9) the same runs with the
+   two-index split, the auxiliary-GF Jij,
    Gauss-Legendre (block), damping, inertia and the Jijk trio, the card
    against the CPU at the same bars, and the Green functions of the card's
    chains on the CPU within ``green_bar``: 1e-12 of scale plus lld - 1
    times the CPU's own movement when the energies move by one unit in the
    last place of the Hamiltonian's scale.
+10. conductivity: K4 in its two Kubo forms at box 30, d = 18, R = 1 (a
+   velocity table alone, one launch; with HoH ``v psi - vo (hs psi)``, two)
+   against their plain versions (1e-12 of scale, reruns bit-identical),
+   timed beside their bounds and ``torch.sparse.mm`` of the velocity
+   table as CSR (with HoH of ``[v | -vo]`` on ``psi`` stacked on
+   ``hs psi``); one contraction of the moments (the whole left chain of
+   200 against 16 right vectors) timed beside its bound; then conductivity
+   runs of the box-30 preset (``nsp=2`` with spin-orbit coupling,
+   ``per_type``, ``cond_ll`` 200, the window (-1.5, 1.0), 2 510 energy
+   points; ``hoh`` off and on, the HoH runs' atoms given an overlap)
+   through K4 against ``plain=True`` on the card, and at box 10 (``cond_ll``
+   40) the card against the CPU: mu within 1e-11 of its scale, every
+   written file within 1e-6, K4 launched ``ops/kubo.launches`` times (one
+   left block); with the wall, its timer sections (``kubo-moments``, which
+   ends in a sync, and ``gamma-and-integrals``) and the peak device memory.
 
 All kernel sources build at once in phase 1, one nvcc each.
 
@@ -124,19 +140,23 @@ import torch
 PRESET = dict(rc=120.0, ndim=1_000_000, lld=20, box=30)
 NSTEP = 2
 # K4's forms on the slab (the chunked route) and on the impurity's
-# combined table (the local zone's route), phase 8
+# combined table (the local zone's route), phase 8, and on the exchange
+# pairs, phase 9; its Kubo velocity forms, phase 10, by the XLA op each
+# replaces: kubo._spmv of a velocity table, and with HoH _apply_v_hoh
 K4_FORMS = ("block_step[surface]", "block_step[impurity]",
             "block_step[exchange]")
+KUBO_FORMS = {"block_step[kubo]": "rslmtoasa_tpu/ops/kubo.py:25",
+              "block_step[kubo-hoh]": "rslmtoasa_tpu/ops/kubo.py:60"}
 SOURCES = {"spmv_dot": "rslmtoasa_tpu_torch/csrc/haydock.cu",
            "spmv_dot_pipelined": "rslmtoasa_tpu_torch/csrc/haydock.cu",
            "update_norm": "rslmtoasa_tpu_torch/csrc/haydock.cu",
            **{n: "rslmtoasa_tpu_torch/csrc/block_step.cu"
-              for n in ("block_step",) + K4_FORMS}}
+              for n in ("block_step",) + K4_FORMS + tuple(KUBO_FORMS)}}
 REPLACES = {"spmv_dot": "rslmtoasa_tpu/ops/pallas_conv.py:185",
             "spmv_dot_pipelined": "rslmtoasa_tpu/ops/pallas_conv.py:352",
             "update_norm": "rslmtoasa_tpu/ops/pallas_conv.py:551",
             **{n: "rslmtoasa_tpu/ops/block_lanczos.py:27"
-               for n in ("block_step",) + K4_FORMS}}
+               for n in ("block_step",) + K4_FORMS}, **KUBO_FORMS}
 # phase 8: the slab and the impurity at full width, and at a small size
 # for the card against the CPU
 EMBEDDED = {"surface": dict(rc=340.0), "impurity": dict(rc=220.0)}
@@ -166,12 +186,21 @@ NSTEP_BARS = {"block": SCF_BARS, "block-hoh": SCF_BARS,
               "chebyshev": CHEB_BARS}
 ITERS = 20
 # phase 9: box 10's energy points for the card against the CPU (no mesh
-# energy lies on a band centre C there, where Jijk's P / P0 is 0 / 0) and
-# its depth (the CPU's plain K4 at R = 21 takes ~1 s a launch), and the
-# timed launches of K4's plain version and the library call at R = 21
+# energy lies on a band centre C there, where Jijk's P / P0 is 0 / 0), its
+# depth and its neighbour shells (the onsite pair, nn and 2nn: R = 9; the
+# CPU's plain K4 at R = 21 takes ~1 s a launch), and the timed launches of
+# K4's plain version and the library call at R = 21
 XC_SMALL_NE = 300
 XC_SMALL_LLD = 12
+XC_SMALL_SHELLS = 2
 XC_ITERS = 5
+# phase 10: the moments of the full-width runs (the config's default
+# cond_ll), box 10's for the card against the CPU, and the overlap the
+# HoH runs give the preset's atoms (whose obar is 0, so that eeo and vo
+# would be 0), per l and spin
+COND_LL = 200
+COND_SMALL_LL = 40
+COND_OBAR = np.array([[-0.05, -0.055], [-0.04, -0.045], [-0.03, -0.035]])
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): FP64 on the tensor cores,
 # FP64 on the vector units, HBM3 bandwidth
 FP64_TENSOR_FLOPS = 67e12
@@ -242,10 +271,11 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def csr_operator(hs, iz, cols, onsite=None, izo=None):
-    """H of the ELL tables as one complex128 CSR matrix (d kk, d (kk + 1)),
-    the library call's operand, with the onsite blocks ``onsite[izo]``
-    folded into each row's own slot; columns sorted within each row."""
+def csr_operator(hs, iz, cols, onsite=None, izo=None, width=None):
+    """H of the ELL tables as one complex128 CSR matrix (d kk, d width),
+    the library call's operand (``width`` rows of x, kk + 1 unless given),
+    with the onsite blocks ``onsite[izo]`` folded into each row's own slot;
+    columns sorted within each row."""
     cols = cols.long()
     kk, nslots = cols.shape
     d = hs.shape[-1]
@@ -263,7 +293,7 @@ def csr_operator(hs, iz, cols, onsite=None, izo=None):
               + torch.arange(d, device=dev)).expand(kk, d, nslots, d)
     crow = torch.arange(d * kk + 1, device=dev) * (d * nslots)
     return torch.sparse_csr_tensor(crow, colidx.reshape(-1), vals,
-                                   size=(d * kk, d * (kk + 1)))
+                                   size=(d * kk, d * (width or kk + 1)))
 
 
 def spmv_parity(hk, op, psi, what, records):
@@ -745,14 +775,15 @@ def exchange_phase(dev, records, every, templates):
     t0 = time.perf_counter()
     name = "block_step[exchange]"
     full = synthetic_exchange(copy.deepcopy(templates[30]))
-    small = synthetic_exchange(copy.deepcopy(templates[10]))
+    small = synthetic_exchange(copy.deepcopy(templates[10]), XC_SMALL_SHELLS)
     small.cfg.energy.channels_ldos = XC_SMALL_NE
     small.cfg.control.lld = XC_SMALL_LLD
     pairs = full.cfg.lattice.ijpair
     r = len(pair_chains(pairs - 1))
     kk = full.cluster.kk
     check(pairs.shape == (6, 2) and r == 21
-          and small.cfg.lattice.ijpair.shape == (6, 2), "phase 9 shapes")
+          and small.cfg.lattice.ijpair.shape == (XC_SMALL_SHELLS + 1, 2),
+          "phase 9 shapes")
     say(9, f"box 30: pairs {pairs.tolist()}, R={r} live start blocks "
            f"(the JAX package recurs {4 * len(pairs)}); box 10 pairs "
            f"{small.cfg.lattice.ijpair.tolist()}")
@@ -932,6 +963,205 @@ def exchange_phase(dev, records, every, templates):
                f" cpu: |d|={d_:.3e} ({jijk['cpu'][0, :3].tolist()} meV/a.u. "
                f"xx..xz), files {worst:.3e}")
     say(9, f"phase 9 took {time.perf_counter() - t0:.1f} s")
+
+
+def conductivity_phase(dev, records, every, templates):
+    """Phase 10: K4 in its two Kubo forms (a velocity table; with HoH
+    ``v psi - vo (hs psi)``) at box 30, d = 18, R = 1, against their plain
+    versions, timed beside their bounds and ``torch.sparse.mm``; one
+    contraction of the moments timed beside its bound; the conductivity
+    runs (``per_type``, ``cond_ll`` 200, ``hoh`` off and on, the HoH runs'
+    atoms given ``COND_OBAR``) through K4 against ``plain=True`` at box 30,
+    and at box 10 (``cond_ll`` 40) the card against the CPU: mu within
+    1e-11 of its scale, every written file within 1e-6.  ``templates`` are
+    phase 7's bcc systems by box.  Fills ``records["block_step[kubo]"]``
+    and ``records["block_step[kubo-hoh]"]``."""
+    from rslmtoasa_tpu_torch.config import ControlCfg
+    from rslmtoasa_tpu_torch.models.conductivity import (
+        ConductivityCalculation,
+        build_kubo_operator,
+    )
+    from rslmtoasa_tpu_torch.ops import kubo
+    from rslmtoasa_tpu_torch.ops.block_lanczos import BlockOperator
+    from rslmtoasa_tpu_torch.utils.timer import g_timer
+
+    t0 = time.perf_counter()
+    check(ControlCfg().cond_ll == COND_LL, "cond_ll 200 is the default")
+
+    def configured(box, hoh, device, plain, nmom):
+        sys_ = copy.deepcopy(templates[box])
+        sys_.device, sys_.plain = torch.device(device), plain
+        cfg = sys_.cfg
+        cfg.calculation.post_processing = "conductivity"
+        cfg.control.cond_ll, cfg.control.cond_calctype = nmom, "per_type"
+        cfg.hamiltonian.hoh = hoh
+        # the window in which the moments converge (at the mesh's own
+        # (-1.0, 0.5) they pass 1e70 by n = 100)
+        cfg.energy.energy_min, cfg.energy.energy_max = WINDOW
+        if hoh:
+            for at in sys_.atoms:
+                at.potential.obar[:] = COND_OBAR
+        sys_.build_hamiltonian()
+        return sys_
+
+    # K4 in the Kubo forms ---------------------------------------------
+    hsys = configured(30, True, dev, False, COND_LL)
+    hb, kk = hsys.ham, hsys.cluster.kk
+    check(np.abs(hb.eeo).max() > 0, "the HoH tables carry the overlap")
+    v, vo = build_kubo_operator(hsys, "charge", "z", np.array([0.0, 1.0,
+                                                               0.0]))
+    op = BlockOperator(hb.ee, hb.iz, hb.cols, hb.lsham, hoh=True,
+                       hso=hb.eeo, enim=hb.enim).to(dev)
+    psi = random_chains(kk, 18, 41, dev, d=18)
+    hpsi = op.hs_apply(psi)
+    live = op.cols.long() < kk
+    for name, vop in (("block_step[kubo]",
+                       kubo.VelocityOperator(v, hb.iz, hb.cols)),
+                      ("block_step[kubo-hoh]",
+                       kubo.VelocityOperator(v, hb.iz, hb.cols, vo))):
+        vop = vop.to(dev)
+        hoh = vop.vo_neg is not None
+        hx = hpsi if hoh else None
+
+        def kernel(plain=False):
+            return vop(psi, hpsi=hx, pad=True, plain=plain)
+
+        y, y0, y1 = kernel(), kernel(True), kernel()
+        torch.cuda.synchronize()
+        err, scale = rel_err(y, y0)
+        check(err <= 1e-12 * scale, f"{name}: {err} > 1e-12 * {scale}")
+        check(torch.equal(y, y1), f"{name} reruns bit-identical")
+        records[name]["max_abs_err"] = err
+        t_k, t_p = in_turns(lambda: kernel(True), kernel)
+        # the SpMVs over the (row, slot) blocks their tables hold, and the
+        # add; each input read once, y written once
+        tabs = [vop.v] + ([vop.vo_neg] if hoh else [])
+        blocks = [int(((t.abs().amax(dim=(-2, -1)) > 0)[op.iz.long()]
+                       & live).sum()) for t in tabs]
+        flops = 8 * 18 * 18 * 18 * sum(blocks) + (2 * kk * 18 * 18 if hoh
+                                                  else 0)
+        moved = nbytes(*tabs, vop.iz, vop.cols, psi, y) + (
+            nbytes(hpsi) if hoh else 0)
+        ops_s, bytes_s = flops / FP64_TENSOR_FLOPS, moved / HBM_BYTES_S
+        bound = 1e3 * max(ops_s, bytes_s)
+        by = "operations" if ops_s >= bytes_s else "bytes"
+        # the library call: v as CSR times psi, with HoH [v | -vo] times
+        # psi stacked on hs psi
+        if hoh:
+            csr = csr_operator(torch.cat([vop.v, vop.vo_neg], 1), vop.iz,
+                               torch.cat([vop.cols, vop.cols + kk + 1], 1),
+                               width=2 * (kk + 1))
+            flat = torch.cat([psi, hpsi]).view(36 * (kk + 1), 18)
+        else:
+            csr = csr_operator(vop.v, vop.iz, vop.cols)
+            flat = psi.view(18 * (kk + 1), 18)
+        e, scale = rel_err(torch.sparse.mm(csr, flat).view(kk, 18, 18),
+                           y0[:kk])
+        check(e <= 1e-12 * scale, f"library SpMV {name}: {e}")
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, flat))
+        records[name].update(ms=t_k, plain_ms=t_p, bound_ms=bound,
+                             bound_by=by, library_ms=lib_ms)
+        form = "v psi - vo hs psi, two launches" if hoh else \
+            "v psi, one launch"
+        say(10, f"{name} d=18 R=1 ({form}; table blocks {blocks}): err "
+                f"{err:.3e}, reruns "
+                f"bit-identical; kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+                f"bound {bound:.4f} ms ({by}, {100 * bound / t_k:.1f}% of "
+                f"it); {flops:.4e} flop, {moved:.4e} B; library "
+                f"torch.sparse.mm {lib_ms:.4f} ms")
+        del csr, flat, y, y0, y1
+    h_ms = cuda_ms(lambda: op(psi))
+    say(10, f"H with HoH (two K4 launches) {h_ms:.4f} ms; box 30 R=1 "
+            f"without HoH, phase 6: {records['block_step']['ms']:.4f} ms")
+    del op, psi, hpsi, hsys
+    torch.cuda.empty_cache()
+
+    # the contraction: one group of right vectors against the whole left
+    # chain, as a run at box 30 makes it ceil(n / GROUP) times
+    k = kk * 18
+    left = torch.randn((1, COND_LL * 18, k), dtype=torch.complex128,
+                       device=dev)
+    right = torch.randn((1, k, kubo.GROUP * 18), dtype=torch.complex128,
+                        device=dev)
+    t_c = cuda_ms(lambda: torch.matmul(left, right), 3)
+    flops = 8 * COND_LL * 18 * kubo.GROUP * 18 * k
+    moved = nbytes(left, right) + 16 * COND_LL * 18 * kubo.GROUP * 18
+    ops_s, bytes_s = flops / FP64_TENSOR_FLOPS, moved / HBM_BYTES_S
+    bound = 1e3 * max(ops_s, bytes_s)
+    nflush = -(-COND_LL // kubo.GROUP)
+    say(10, f"contraction (1, {COND_LL * 18}, {k}) x (1, {k}, "
+            f"{kubo.GROUP * 18}) complex128 torch.matmul: {t_c:.4f} ms, "
+            f"{flops / t_c / 1e9:.2f} TFLOP/s; bound {bound:.4f} ms "
+            f"({'operations' if ops_s >= bytes_s else 'bytes'}, "
+            f"{100 * bound / t_c:.1f}% of it; {flops / moved:.1f} flop/B); "
+            f"{nflush} per box-30 run, ~{nflush * t_c / 1e3:.3f} s")
+    del left, right
+    torch.cuda.empty_cache()
+
+    # the conductivity runs ----------------------------------------------
+    def cond_run(sys_, work):
+        """``ConductivityCalculation.run()`` of ``sys_`` into ``work``, the
+        kernels' counts zeroed just before it and read just after; its
+        wall, timer-section seconds and the card's peak memory."""
+        os.makedirs(work)
+        before = section_totals(g_timer)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in every.values():
+            fn.launches = 0
+        t1 = time.perf_counter()
+        mu = ConductivityCalculation(sys_, work).run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = {n: fn.launches for n, fn in every.items()}
+        spent = {k_: v_ - before.get(k_, 0.0)
+                 for k_, v_ in section_totals(g_timer).items()
+                 if v_ - before.get(k_, 0.0) > 0.0005}
+        return dict(mu=mu, wall=wall, launches=launches, spent=spent,
+                    peak=torch.cuda.max_memory_allocated(dev), dir=work)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for hoh in (False, True):
+            case = "hoh" if hoh else "non-hoh"
+            res = {}
+            for run, box, device, plain, nmom in (
+                    ("cuda", 30, dev, False, COND_LL),
+                    ("cuda-plain", 30, dev, True, COND_LL),
+                    ("cuda-box10", 10, dev, False, COND_SMALL_LL),
+                    ("cpu-box10", 10, "cpu", False, COND_SMALL_LL)):
+                res[run] = r_ = cond_run(
+                    configured(box, hoh, device, plain, nmom),
+                    os.path.join(tmp, f"{case}-{run}"))
+                k4 = kubo.launches(nmom, nmom, hoh) if run in (
+                    "cuda", "cuda-box10") else 0
+                check(r_["launches"] == dict({n: 0 for n in every},
+                                             block_step=k4),
+                      f"conductivity {case} {run} launches "
+                      f"{r_['launches']}, want {k4} (one left block)")
+                check(r_["mu"].shape == (18, 18, nmom, nmom, 1)
+                      and np.isfinite(r_["mu"]).all(),
+                      f"conductivity {case} {run} moments")
+                say(10, f"conductivity {case} {run}: {r_['wall']:.3f} s, "
+                        f"K4 launches {r_['launches']['block_step']}, peak "
+                        f"{r_['peak'] / 2**30:.2f} GiB; " + ", ".join(
+                            f"{k_} {v_:.3f}"
+                            for k_, v_ in r_["spent"].items()))
+            records[f"block_step[kubo{'-hoh' if hoh else ''}]"][
+                "launches"] = res["cuda"]["launches"]["block_step"]
+            for got, ref in (("cuda", "cuda-plain"),
+                             ("cuda-box10", "cpu-box10")):
+                g_, w_ = res[got]["mu"], res[ref]["mu"]
+                scale = float(np.abs(w_).max())
+                dmu = float(np.abs(g_ - w_).max())
+                check(dmu <= 1e-11 * scale, f"conductivity {case} {got} vs "
+                      f"{ref}: mu {dmu} > 1e-11 * {scale}")
+                nf, worst = files_close(res[ref]["dir"], res[got]["dir"])
+                say(10, f"conductivity {case} {got} vs {ref}: |d mu| "
+                        f"{dmu:.3e} ({dmu / scale:.3e} of scale {scale:.4e})"
+                        f", files {worst:.3e} ({nf} files)")
+            del res
+            torch.cuda.empty_cache()
+    say(10, f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -1487,6 +1717,9 @@ def main():
 
     # 9. exchange -------------------------------------------------------
     exchange_phase(dev, records, every, templates)
+
+    # 10. conductivity --------------------------------------------------
+    conductivity_phase(dev, records, every, templates)
     del templates, soc
     check("jax" not in sys.modules, "no JAX imported")
 
@@ -1496,7 +1729,7 @@ def main():
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"])
                for n, r in records.items()]
-    say(10, f"total {time.perf_counter() - t_start:.1f} s")
+    say(11, f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

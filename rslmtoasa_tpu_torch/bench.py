@@ -35,7 +35,7 @@ import torch
 
 from .models.presets import build_synthetic_bcc
 from .ops.lanczos import HaydockOperator, scalar_start_vectors
-from .utils.device import resolve_device
+from .utils.device import resolve_device, synchronize
 
 FLOPS_PER_NNZ = 8  # one complex multiply-add in FP64
 GUARD_STEPS = 3
@@ -48,19 +48,14 @@ def _say(msg: str) -> None:
     print(f"# {msg}", file=sys.stderr, flush=True)
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def _time(fn, dev: torch.device):
     """(seconds per call, last result) after one warm-up call."""
     out = fn()
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     for _ in range(REPS):
         out = fn()
-    _sync(dev)
+    synchronize(dev)
     return (time.perf_counter() - t0) / REPS, out
 
 

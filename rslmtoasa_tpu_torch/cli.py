@@ -12,7 +12,10 @@ surface or impurity cluster (``pre_processing`` ``none``, ``bravais``,
 output files (totaldos.out, <El>_out.nml, report.out, ...), or with
 ``post_processing='exchange'`` the exchange couplings of a bulk or surface
 cluster (jij.out, dij.out, aij.out, jtens.out and the two-index files, or
-jijk.out for ``njijk > 0``), and prints the hierarchical timing report.
+jijk.out for ``njijk > 0``), or with ``post_processing='conductivity'`` the
+Kubo-Bastin conductivity of a bulk or surface cluster (cond_total.out,
+cond_total_orb_{real,im}.out and, per type, <El>_cond.out and
+<El>_cond_orb_{real,im}.out), and prints the hierarchical timing report.
 The recursion runs on ``device`` (default ``cuda``; without a card that
 raises).  Every other ``&calculation`` branch raises
 ``NotImplementedError`` naming its ROADMAP item.
@@ -38,8 +41,7 @@ NOT_PORTED = {"sd": "item 12 (spin dynamics)",
               "exchange_p2rs": "item 12 (PAOFLOW)",
               "paoflow2rs": "item 12 (PAOFLOW)",
               "orbital_modern": "item 12 (orbital moment)",
-              "conductivity": "item 11 (conductivity)",
-              "conductivity_p2rs": "item 11 (conductivity)"}
+              "conductivity_p2rs": "item 12 (PAOFLOW)"}
 
 
 def parse_args(argv):
@@ -103,6 +105,11 @@ def run_calculation(cfg: JobConfig, workdir: str = ".",
     sys_ = BulkSystem.build(cfg, workdir, device=device)
     if post == "exchange":
         run_exchange(sys_, workdir)
+    elif post == "conductivity":
+        from .models.conductivity import ConductivityCalculation
+
+        ConductivityCalculation(sys_, workdir).run(
+            cond_type=cfg.control.cond_type)
     else:
         run_scf(sys_, workdir, pre)
     print(g_timer.report())

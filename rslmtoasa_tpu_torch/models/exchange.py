@@ -45,6 +45,7 @@ from ..parallel.dispatch import block_lanczos_auto, chebyshev_moments_auto
 from ..physics.energy_mesh import EnergyMesh
 from ..physics.greens import bgreen, get_terminf
 from ..physics.quadrature import simpson_f_cumulative, simpson_f_fermi
+from ..utils.device import synchronize
 from ..utils.logger import g_logger
 from ..utils.timer import g_timer
 from .bulk import BulkSystem
@@ -172,11 +173,6 @@ class ExchangeCalculation:
         return torch.as_tensor(np.asarray(x), dtype=dtype,
                                device=self.device)
 
-    def _sync(self):
-        """End a timer section with the device's work done."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     # ------------------------------------------------------------------
     def run(self):
         cfg = self.cfg
@@ -271,7 +267,7 @@ class ExchangeCalculation:
                         for k, v in _spin_components(gij).items()}
         self.comps_j = {k: v.permute(0, 2, 3, 1)
                         for k, v in _spin_components(gji).items()}
-        self._sync()
+        synchronize(self.device)
 
     # ------------------------------------------------------------------
     def _d_diagonals(self, ene: np.ndarray) -> torch.Tensor:

@@ -293,28 +293,28 @@ def build_synthetic_exchange(nshell: int = EXCHANGE_SHELLS, **kw):
     return synthetic_exchange(build_synthetic_bcc(**kw), nshell)
 
 
-def write_exchange_input(sys_, where: str) -> str:
-    """``input.nml`` of the exchange run of a spherical bcc preset
-    (:func:`synthetic_exchange`, no ``box``) and its element files, into the
-    directory ``where``; returns the input's path."""
+def _write_input(sys_, where: str, lattice: dict, control: dict,
+                 post: str) -> str:
+    """``input.nml`` of a run of a spherical bcc preset (no ``box``) with
+    post-processing ``post``, the ``&lattice`` and ``&control`` entries
+    given added, and its element files, into the directory ``where``;
+    returns the input's path."""
     from .scf import SelfConsistency
 
     cfg = sys_.cfg
     lat, en, ctl = cfg.lattice, cfg.energy, cfg.control
-    lattice = {"rc": lat.rc, "ndim": lat.ndim, "alat": lat.alat,
-               "wav": lat.wav, "crystal_sym": lat.crystal_sym,
-               "ntype": lat.ntype, "r2": lat.r2, "ct": [lat.ct[0]],
-               "njij": lat.njij, "ijpair": lat.ijpair}
-    if lat.njijk > 0:
-        lattice.update(njijk=lat.njijk, ijktrio=lat.ijktrio)
     text = "".join([
         write_namelist("calculation", {
             "pre_processing": cfg.calculation.pre_processing,
-            "post_processing": cfg.calculation.post_processing}),
+            "post_processing": post}),
         write_namelist("control", {
             "calctype": ctl.calctype, "nsp": ctl.nsp, "lld": ctl.lld,
-            "recur": ctl.recur}),
-        write_namelist("lattice", lattice),
+            "recur": ctl.recur, **control}),
+        write_namelist("lattice", {
+            "rc": lat.rc, "ndim": lat.ndim, "alat": lat.alat,
+            "wav": lat.wav, "crystal_sym": lat.crystal_sym,
+            "ntype": lat.ntype, "r2": lat.r2, "ct": [lat.ct[0]],
+            **lattice}),
         write_namelist("atoms", {"database": "", "label": cfg.atoms.labels}),
         write_namelist("energy", {
             "channels_ldos": en.channels_ldos, "energy_min": en.energy_min,
@@ -329,3 +329,29 @@ def write_exchange_input(sys_, where: str) -> str:
         os.replace(os.path.join(where, f"{at.element.symbol}_out.nml"),
                    os.path.join(where, f"{at.label}.nml"))
     return path
+
+
+def write_exchange_input(sys_, where: str) -> str:
+    """``input.nml`` of the exchange run of a spherical bcc preset
+    (:func:`synthetic_exchange`, no ``box``) and its element files, into the
+    directory ``where``; returns the input's path."""
+    lat = sys_.cfg.lattice
+    lattice = {"njij": lat.njij, "ijpair": lat.ijpair}
+    if lat.njijk > 0:
+        lattice.update(njijk=lat.njijk, ijktrio=lat.ijktrio)
+    return _write_input(sys_, where, lattice, {},
+                        sys_.cfg.calculation.post_processing)
+
+
+def write_conductivity_input(sys_, where: str) -> str:
+    """``input.nml`` of a conductivity run (``post_processing=
+    'conductivity'``) of a spherical bcc preset, with its ``&control``
+    moments (``cond_ll``), start units (``cond_calctype``,
+    ``random_vec_num``) and operators (``linear_in``, ``linear_out``), and
+    its element files, into the directory ``where``; returns the input's
+    path."""
+    ctl = sys_.cfg.control
+    return _write_input(sys_, where, {}, {
+        "cond_ll": ctl.cond_ll, "cond_calctype": ctl.cond_calctype,
+        "random_vec_num": ctl.random_vec_num, "linear_in": ctl.linear_in,
+        "linear_out": ctl.linear_out}, "conductivity")

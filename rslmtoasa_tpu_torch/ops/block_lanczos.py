@@ -87,18 +87,28 @@ class BlockOperator(nn.Module):
                 self.izo, self.onsite.shape[0]))
         return self._zone[1]
 
+    def hs_apply(self, psi: torch.Tensor, plain: bool = False
+                 ) -> torch.Tensor:
+        """``hs psi`` with a zero row kk: the first K4 launch of an HoH
+        application, which a caller may keep and pass as ``hpsi``."""
+        step = bk.block_step_ref if plain else bk.block_step
+        return step(self.hs, self.iz, self.cols, psi, pad=True,
+                    zone=None if plain else self.zone())[0]
+
     def forward(self, psi: torch.Tensor, gram: bool = False,
-                plain: bool = False
+                plain: bool = False, hpsi: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """``(H psi, Gram partials of psi^H H psi or None)``: one K4 launch,
-        or two with HoH; the plain versions with ``plain``."""
+        or two with HoH (one where the caller gives ``hpsi``, the
+        :meth:`hs_apply` of this ``psi``); the plain versions with
+        ``plain``."""
         step = bk.block_step_ref if plain else bk.block_step
         zone = None if plain else self.zone()
         if not self.hoh:
             return step(self.hs, self.iz, self.cols, psi, self.onsite,
                         self.izo, psi, gram=gram, zone=zone)
-        hpsi, _ = step(self.hs, self.iz, self.cols, psi, pad=True,
-                       zone=zone)
+        if hpsi is None:
+            hpsi = self.hs_apply(psi, plain)
         return step(self.hso_neg, self.iz, self.cols, hpsi, self.onsite,
                     self.izo, psi, add=hpsi[:self.kk], gram=gram, zone=zone)
 

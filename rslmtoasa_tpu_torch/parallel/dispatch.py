@@ -1,12 +1,14 @@
-"""Dispatch of the block and Chebyshev recursions on one device.
+"""Dispatch of the block, Chebyshev and Kubo recursions on one device.
 
 Port of the CPU route of ``rslmtoasa_tpu/parallel/dispatch.py``
 (``block_lanczos_auto`` :295, ``chebyshev_moments_auto`` :480): when the
 problem decouples into collinear spin sectors (``nsp`` 1, no spin-orbit
 coupling) the recursion runs once per 9-wide sector, otherwise once at the
-full width 18.  Either way it runs on ``device`` through K4.  The mesh, the
-active-set wavefront and the TPU engines are not ported (ROADMAP queue 1,
-item 7).
+full width 18.  Either way it runs on ``device`` through K4.  The Kubo
+moments (:func:`kubo_moments_auto`) always run at width 18, as the JAX
+package's ``models/conductivity.py`` runs them, in groups of start blocks
+that fit the device's memory.  The mesh, the active-set wavefront and the
+TPU engines are not ported (ROADMAP queue 1, item 7).
 
 The tables come as host arrays (complex128, the JAX package's layouts),
 ``psi0`` as a tensor in the port's layout ``(kk+1, d, R d)``; results come
@@ -23,6 +25,7 @@ import torch
 
 from ..ops.block_lanczos import BlockOperator, block_lanczos
 from ..ops.chebyshev import chebyshev_moments
+from ..ops.kubo import VelocityOperator, kubo_moments, plan
 from ..utils.logger import g_logger
 
 
@@ -133,3 +136,33 @@ def chebyshev_moments_auto(hs, lsham, iz, cols, psi0: torch.Tensor,
         g_logger.fatal("Chebyshev moments did not converge. Check energy "
                        "limits energy_min and energy_max")
     return mu
+
+
+def kubo_moments_auto(hs, lsham, iz, cols, va, vb, psi0: torch.Tensor,
+                      n_moments: int, a: float, b: float, *,
+                      hoh: bool = False, hso=None, enim=None, vo_a=None,
+                      vo_b=None, plain: bool = False) -> torch.Tensor:
+    """Kubo moments mu (R, n, m, 18, 18) of the R start blocks of ``psi0``
+    (kk+1, 18, 18 R) on its device, as a tensor there.  The start blocks
+    recur side by side in groups, and the left chain is stored in blocks,
+    both sized by :func:`~..ops.kubo.plan`; with ``hoh`` the velocities
+    carry ``vo_a``/``vo_b`` (zeros if None)."""
+    dev = psi0.device
+    kk, r = psi0.shape[0] - 1, psi0.shape[2] // 18
+    op = BlockOperator(hs, iz, cols, lsham, hoh=hoh, hso=hso,
+                       enim=enim).to(dev)
+
+    def velocity(v, vo):
+        if hoh and vo is None:
+            vo = np.zeros_like(v)
+        return VelocityOperator(v, iz, cols, vo if hoh else None).to(dev)
+
+    va_op, vb_op = velocity(va, vo_a), velocity(vb, vo_b)
+    per, size = plan(kk, r, n_moments, dev, plain)
+    g_logger.info(f"Kubo moments: {r} start blocks in groups of {per}, "
+                  f"left chain in blocks of {size} of {n_moments}")
+    return torch.cat([
+        kubo_moments(op, va_op, vb_op,
+                     psi0[:, :, 18 * s:18 * min(r, s + per)].contiguous(),
+                     n_moments, a, b, size, plain=plain)
+        for s in range(0, r, per)])

@@ -20,3 +20,10 @@ def resolve_device(device) -> torch.device:
         raise ValueError(f"unsupported device {str(device)!r} "
                          "(use 'cuda' or 'cpu')")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU): the end of a timed section."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,6 +1,6 @@
 """The CUDA kernels (Haydock K1'-K3', block step K4) against their plain
-versions, and the Green functions and the exchange pair recursion against
-the same torch code on the CPU, on the card.
+versions, and the Green functions, the exchange pair recursion and the
+Kubo moments against the same torch code on the CPU, on the card.
 
 Marked ``gpu``: without a CUDA card every test skips (the check is made
 in the fixture, never at import).  On a machine with one, run
@@ -12,6 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from rslmtoasa_tpu_torch.models.conductivity import (
+    ConductivityCalculation,
+    build_velocity_operators,
+)
 from rslmtoasa_tpu_torch.models.exchange import (
     ExchangeCalculation,
     pair_start_vectors,
@@ -27,6 +31,7 @@ from rslmtoasa_tpu_torch.models.presets import (
 )
 from rslmtoasa_tpu_torch.ops import block_kernels as bk
 from rslmtoasa_tpu_torch.ops import haydock_kernels as hk
+from rslmtoasa_tpu_torch.ops import kubo
 from rslmtoasa_tpu_torch.ops.block_lanczos import (
     BlockOperator,
     block_lanczos,
@@ -465,3 +470,64 @@ def test_pair_recursion_on_card_matches_cpu(card, recur, tmp_path):
     for g, w in zip(rg, rw):
         for k in ("jij", "dmi", "aij"):
             assert np.abs(np.asarray(g[k]) - np.asarray(w[k])).max() <= 1e-8
+
+
+# ----------------------------------------------------------------------
+# the Kubo moments
+@pytest.mark.parametrize("pad", [False, True])
+@pytest.mark.parametrize("hoh", [False, True])
+def test_block_step_kernel_kubo_forms(block_system, card, hoh, pad):
+    """K4 in the Kubo forms: a velocity table alone (one launch), and with
+    HoH ``v psi - vo (hs psi)`` (two), against their plain versions within
+    1e-12 of scale; a rerun bit-identical."""
+    hb = block_system.ham
+    v, _, _, _ = build_velocity_operators(block_system, np.array(
+        [0.0, 1.0, 0.0]), np.array([1.0, 0.0, 0.0]))
+    vop = kubo.VelocityOperator(v, hb.iz, hb.cols,
+                                0.05 * np.roll(v, 1, axis=1) if hoh
+                                else None).to(card)
+    kk = hb.kk
+    psi = _blocks(kk, 18, 2, 21, card)
+    hpsi = _blocks(kk, 18, 2, 22, card) if hoh else None
+    n = bk.block_step.launches
+    y = vop(psi, hpsi=hpsi, pad=pad)
+    assert bk.block_step.launches == n + (2 if hoh else 1)
+    y0 = vop(psi, hpsi=hpsi, pad=pad, plain=True)
+    torch.cuda.synchronize()
+    assert y.shape == y0.shape == (kk + pad, 18, 36)
+    assert (y - y0).abs().max() <= BAR * y0.abs().max()
+    if pad:
+        assert not y[kk].any()
+    assert torch.equal(y, vop(psi, hpsi=hpsi, pad=pad))
+
+
+@pytest.mark.parametrize("hoh", [False, True])
+def test_kubo_moments_on_card_matches_cpu(card, hoh, tmp_path):
+    """The conductivity moments of the B2 preset's two types side by side
+    (the atoms given an overlap with HoH) through K4 on the card against
+    the same on the CPU: mu and the integrand within 1e-12 of scale; K4
+    launched ``kubo.launches`` times."""
+    out = []
+    for device in (card, "cpu"):
+        sys_ = build_synthetic_b2(rc=12.0, nsp=2, hoh=hoh, device=device)
+        sys_.cfg.control.cond_ll = 12
+        sys_.cfg.energy.channels_ldos = 300
+        if hoh:
+            for at in sys_.atoms:
+                at.potential.obar[:] = -0.05
+            sys_.build_hamiltonian()
+        calc = ConductivityCalculation(sys_, str(tmp_path))
+        v_a, v_b, vo_a, vo_b = build_velocity_operators(
+            sys_, np.array([0.0, 1.0, 0.0]), np.array([1.0, 0.0, 0.0]))
+        a, b = 1.9, -0.2
+        n = bk.block_step.launches
+        mu = calc.compute_moments(v_a, v_b, a, b, 12, vo_a=vo_a, vo_b=vo_b)
+        assert bk.block_step.launches - n == (
+            kubo.launches(12, 12, hoh) if device == card else 0)
+        em = sys_.emesh
+        integrand = calc.conductivity_tensor(mu, em, 1.5 / 1.7, -0.25, 12)
+        out.append((mu.cpu(), integrand))
+    (mu, ig), (mu0, ig0) = out
+    assert mu.shape == (18, 18, 12, 12, 2)
+    assert (mu - mu0).abs().max() <= BAR * mu0.abs().max()
+    assert np.abs(ig - ig0).max() <= BAR * np.abs(ig0).max()

@@ -491,7 +491,7 @@ def test_refusals(tmp_path):
         with pytest.raises(ValueError, match="pairs"):
             ExchangeCalculation(psys, np.array(bad), str(tmp_path))
     for post, item in (("exchange_p2rs", "item 12"),
-                       ("conductivity", "item 11"),
+                       ("conductivity_p2rs", "item 12"),
                        ("orbital_modern", "item 12")):
         psys.cfg.calculation.post_processing = post
         with pytest.raises(NotImplementedError, match=item):

@@ -27,7 +27,9 @@ for name in names:
     importlib.import_module(name)
 assert {"rslmtoasa_tpu_torch.geometry.surface",
         "rslmtoasa_tpu_torch.physics.madelung_surf",
-        "rslmtoasa_tpu_torch.models.exchange"} <= set(names)
+        "rslmtoasa_tpu_torch.models.exchange",
+        "rslmtoasa_tpu_torch.models.conductivity",
+        "rslmtoasa_tpu_torch.ops.kubo"} <= set(names)
 
 from rslmtoasa_tpu_torch.ops.lanczos import (
     HaydockOperator, scalar_start_vectors)
