@@ -113,6 +113,25 @@ code is then non-zero):
    written file within 1e-6, K4 launched ``ops/kubo.launches`` times (one
    left block); with the wall, its timer sections (``kubo-moments``, which
    ends in a sync, and ``gamma-and-integrals``) and the peak device memory.
+11. last branches, each through ``cli.run_system`` (the CLI's dispatch on
+   a built system) at box 30, ``nsp=2`` with spin-orbit coupling unless
+   said: K4 in its orbital form (R start blocks at the orbital run's group
+   size, the lsham onsite term, no Gram) against its plain version (1e-12
+   of scale, reruns bit-identical), timed beside its bound and
+   ``torch.sparse.mm``, and the orbital trace of 16 sites through K4
+   against plain (1e-11 of scale); ``orbital_modern`` on the CLI's 2 000
+   sites (window (-1.5, 1.0)) through K4 alone, launched lld + 1 times per
+   group; a bravais block SCF writing ``rs2paoham.dat``, and on it as
+   ``paoham.dat`` the ``paoflow2rs`` SCF, ``exchange_p2rs`` (phase 9's six
+   pairs) and ``conductivity_p2rs`` (``cond_ll`` 200); ``sd`` at ``nsp=3``
+   (start moment tilted, Depondt at 300 K, two steps of one SCF iteration
+   each), and the first step's moments (1e-10) and torques (1e-8 of scale,
+   the atomic-sphere solver's noise) from one state, K4 against
+   ``plain=True``; each run with its K4 launch count, wall, timer
+   sections and peak device memory.  At box 10 (300 energy points) each
+   branch on the card against the CPU on its written files (1e-6; the
+   orbital moment on 16 sites at lld 12, ``sd`` on its trajectory, whose
+   SCF files carry the solver's noise).
 
 All kernel sources build at once in phase 1, one nvcc each.
 
@@ -128,6 +147,7 @@ import inspect
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -141,12 +161,17 @@ PRESET = dict(rc=120.0, ndim=1_000_000, lld=20, box=30)
 NSTEP = 2
 # K4's forms on the slab (the chunked route) and on the impurity's
 # combined table (the local zone's route), phase 8, and on the exchange
-# pairs, phase 9; its Kubo velocity forms, phase 10, by the XLA op each
-# replaces: kubo._spmv of a velocity table, and with HoH _apply_v_hoh
+# pairs, phase 9; its Kubo velocity forms, phase 10, and its orbital form,
+# phase 11, by the XLA op each replaces: kubo._spmv of a velocity table,
+# with HoH _apply_v_hoh, and _apply_h
 K4_FORMS = ("block_step[surface]", "block_step[impurity]",
             "block_step[exchange]")
 KUBO_FORMS = {"block_step[kubo]": "rslmtoasa_tpu/ops/kubo.py:25",
-              "block_step[kubo-hoh]": "rslmtoasa_tpu/ops/kubo.py:60"}
+              "block_step[kubo-hoh]": "rslmtoasa_tpu/ops/kubo.py:60",
+              # the orbital moment's H~ (phase 11): R start blocks, lsham,
+              # no Gram, the XLA op that the JAX package's orbital.py
+              # applies
+              "block_step[orbital]": "rslmtoasa_tpu/ops/kubo.py:37"}
 SOURCES = {"spmv_dot": "rslmtoasa_tpu_torch/csrc/haydock.cu",
            "spmv_dot_pipelined": "rslmtoasa_tpu_torch/csrc/haydock.cu",
            "update_norm": "rslmtoasa_tpu_torch/csrc/haydock.cu",
@@ -201,6 +226,21 @@ XC_ITERS = 5
 COND_LL = 200
 COND_SMALL_LL = 40
 COND_OBAR = np.array([[-0.05, -0.055], [-0.04, -0.045], [-0.03, -0.035]])
+# phase 11: the orbital moment's sites (the CLI's 2 000 at box 30), the
+# start blocks held against the plain version and box 10's sites (the
+# CLI's 1 000 would keep the CPU's plain K4 busy for minutes); the spin
+# dynamics (Depondt with a thermal field, two steps, an SCF iteration
+# each), its start moment, and the bar on its torques, K4 against plain
+# from one state: the atomic-sphere solver turns inputs 1e-15 apart into
+# potential parameters ~4e-11 apart (the CPU preset, port against JAX),
+# ~4e-10 of the torques' scale
+ORB_SITES = 2000
+ORB_HELD = 16
+ORB_SMALL_SITES = 16
+SD_NML = ("&sd\n integrator = 'depondt'\n sd_temp = 300.0\n asd_step = 2\n"
+          " alpha = 0.1\n dt = 1e-15\n sd_seed = 4321\n/\n")
+TILT = np.array([0.3, -0.4, 0.866])
+TORQUE_BAR = 1e-8
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): FP64 on the tensor cores,
 # FP64 on the vector units, HBM3 bandwidth
 FP64_TENSOR_FLOPS = 67e12
@@ -700,10 +740,33 @@ def _last_place(token):
     return 10.0 ** (int(exp or 0) - len(mant.partition(".")[2]))
 
 
+def file_close(p1, p2):
+    """Two written files: the same words, every number within 1e-6
+    (relative above one) or one unit of its last printed digit.  Returns
+    the largest difference; a miss fails the phase."""
+    f = os.path.basename(p1)
+    with open(p1) as f1, open(p2) as f2:
+        t1, t2 = f1.read().split(), f2.read().split()
+    check(len(t1) == len(t2), f"{f}: the same number of words")
+    worst = 0.0
+    for a, b in zip(t1, t2):
+        if a == b:
+            continue
+        # a namelist separates the entries of an array with commas
+        a, b = a.rstrip(","), b.rstrip(",")
+        try:
+            x, y = float(a), float(b)
+        except ValueError:
+            check(False, f"{f}: {a} vs {b}")
+        bar = max(1e-6 * max(1.0, abs(x)), 1.000001 * _last_place(a))
+        check(abs(x - y) <= bar, f"{f}: {a} vs {b}")
+        worst = max(worst, abs(x - y))
+    return worst
+
+
 def files_close(d1, d2):
     """Two runs' output directories: the same files (and subdirectories),
-    the same words, every number within 1e-6 (relative above one) or one
-    unit of its last printed digit.  Returns (files, the largest
+    each as :func:`file_close` holds it.  Returns (files, the largest
     difference); a miss fails the phase."""
     names = sorted(os.listdir(d1))
     check(names == sorted(os.listdir(d2)), f"files {names} in both")
@@ -715,16 +778,7 @@ def files_close(d1, d2):
             nfiles, worst = nfiles + n, max(worst, w)
             continue
         nfiles += 1
-        with open(p1) as f1, open(p2) as f2:
-            t1, t2 = f1.read().split(), f2.read().split()
-        check(len(t1) == len(t2), f"{f}: the same number of words")
-        for a, b in zip(t1, t2):
-            if a == b:
-                continue
-            x, y = float(a), float(b)
-            bar = max(1e-6 * max(1.0, abs(x)), 1.000001 * _last_place(a))
-            check(abs(x - y) <= bar, f"{f}: {a} vs {b}")
-            worst = max(worst, abs(x - y))
+        worst = max(worst, file_close(p1, p2))
     return nfiles, worst
 
 
@@ -1162,6 +1216,289 @@ def conductivity_phase(dev, records, every, templates):
             del res
             torch.cuda.empty_cache()
     say(10, f"phase 10 took {time.perf_counter() - t0:.1f} s")
+
+
+def last_branches_phase(dev, records, every, templates):
+    """Phase 11: the last ``&calculation`` branches through
+    ``cli.run_system`` at box 30 on ``dev``: a bravais block SCF writing
+    ``rs2paoham.dat``, then ``paoflow2rs``, ``exchange_p2rs`` (phase 9's
+    pairs) and ``conductivity_p2rs`` (``cond_ll`` 200) on it as
+    ``paoham.dat``; ``orbital_modern`` on the CLI's 2 000 sites, with K4 in
+    its orbital form against its plain version (one launch at the run's
+    group of start blocks, timed beside its bound and ``torch.sparse.mm``,
+    and the trace of 16 sites); ``sd`` at ``nsp=3`` (Depondt at 300 K, two
+    steps), and the torques of one state, K4 against plain; at box 10
+    each branch on the card against the CPU on its written files.
+    ``templates`` are phase 7's bcc systems by box.  Fills
+    ``records["block_step[orbital]"]``."""
+    from rslmtoasa_tpu_torch import cli
+    from rslmtoasa_tpu_torch.models import orbital
+    from rslmtoasa_tpu_torch.models.presets import synthetic_exchange
+    from rslmtoasa_tpu_torch.models.scf import (
+        SelfConsistency,
+        magnetic_torques,
+    )
+    from rslmtoasa_tpu_torch.ops import kubo
+    from rslmtoasa_tpu_torch.ops.block_lanczos import BlockOperator
+    from rslmtoasa_tpu_torch.utils.namelist import parse_namelists
+    from rslmtoasa_tpu_torch.utils.timer import g_timer
+
+    t0 = time.perf_counter()
+    name = "block_step[orbital]"
+
+    def configured(box, device, plain=False, nsp=2, window=None):
+        """A copy of the box's template on ``device``, without HoH, at
+        ``nsp`` (3: the start moment tilted, the &sd namelist), its energy
+        window ``window`` (the Chebyshev-type runs) and at box 10 on
+        XC_SMALL_NE energy points."""
+        sys_ = copy.deepcopy(templates[box])
+        sys_.device, sys_.plain = torch.device(device), plain
+        cfg = sys_.cfg
+        cfg.control.nsp, cfg.hamiltonian.hoh = nsp, False
+        if window is not None:
+            cfg.energy.energy_min, cfg.energy.energy_max = window
+        if box == 10:
+            cfg.energy.channels_ldos = XC_SMALL_NE
+        if nsp == 3:
+            cfg.namelists = parse_namelists(SD_NML)
+            for at in sys_.atoms:
+                at.potential.mom = TILT.copy()
+        return sys_
+
+    def branch(sys_, work, pre="bravais", proc="none", post="none",
+               src=None, run=None):
+        """``cli.run_system`` (or ``run(sys_, work)``) of ``sys_`` with
+        these ``&calculation`` branches into ``work``, ``paoham.dat`` read
+        from ``src``; the kernels' counts zeroed just before it and read
+        just after; its return, wall, timer-section seconds and the card's
+        peak memory."""
+        os.makedirs(work)
+        calc = sys_.cfg.calculation
+        calc.pre_processing, calc.processing = pre, proc
+        calc.post_processing = post
+        sys_.cfg.control.fname = os.path.join(src or work, "input.nml")
+        before = section_totals(g_timer)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in every.values():
+            fn.launches = 0
+        t1 = time.perf_counter()
+        obj = (run or cli.run_system)(sys_, work)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = {n: fn.launches for n, fn in every.items()}
+        spent = {k: v - before.get(k, 0.0)
+                 for k, v in section_totals(g_timer).items()
+                 if v - before.get(k, 0.0) > 0.0005}
+        return dict(obj=obj, wall=wall, launches=launches, spent=spent,
+                    peak=torch.cuda.max_memory_allocated(dev), dir=work)
+
+    def launched(r_, k4, what):
+        check(r_["launches"] == dict({n: 0 for n in every}, block_step=k4),
+              f"{what}: launches {r_['launches']}, want K4 {k4}")
+        say(11, f"{what}: {r_['wall']:.3f} s, K4 launches {k4}, peak "
+                f"{r_['peak'] / 2**30:.2f} GiB; " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in r_["spent"].items()))
+
+    def finite_numbers(path):
+        with open(path) as fh:
+            words = fh.read().split()
+        vals = np.array([float(w) for w in words])
+        check(vals.size > 0 and np.isfinite(vals).all(),
+              f"{os.path.basename(path)}: finite numbers")
+        return vals
+
+    # K4 in the orbital form at the run's group of start blocks ---------
+    sys30 = configured(30, dev, window=WINDOW)
+    sys30.build_hamiltonian()
+    hb, cl = sys30.ham, sys30.cluster
+    kk, lld = cl.kk, sys30.cfg.control.lld
+    op = BlockOperator(hb.ee, hb.iz, hb.cols, hb.lsham).to(dev)
+    nsites = min(kk, ORB_SITES)  # the CLI's
+    group = orbital.plan(kk, nsites, dev)
+    c = 18 * group
+    # random columns made on the card (a host copy would take ~7 GB)
+    psi = torch.randn((kk + 1, 18, c), dtype=torch.complex128, device=dev,
+                      generator=torch.Generator(dev).manual_seed(51))
+    psi[kk] = 0.0
+    (y, g), (y0, _), (y1, _) = op(psi), op(psi, plain=True), op(psi)
+    torch.cuda.synchronize()
+    err, scale = rel_err(y, y0)
+    check(g is None and err <= 1e-12 * scale,
+          f"{name} R={group}: {err} > 1e-12 * {scale}")
+    check(torch.equal(y, y1), f"{name} reruns bit-identical")
+    t_k, t_p = in_turns(lambda: op(psi, plain=True), lambda: op(psi),
+                        XC_ITERS)
+    # the SpMV over the occupied blocks and the onsite term; each input
+    # read once (x is p), y written once
+    nblocks = int((op.cols < kk).sum())
+    flops = 8 * 18 * 18 * c * (nblocks + kk)
+    moved = nbytes(op.hs, op.iz, op.cols, psi, op.onsite, op.izo) \
+        + 16 * kk * 18 * c
+    ops_s, bytes_s = flops / FP64_TENSOR_FLOPS, moved / HBM_BYTES_S
+    bound = 1e3 * max(ops_s, bytes_s)
+    by = "operations" if ops_s >= bytes_s else "bytes"
+    csr = csr_operator(op.hs, op.iz, op.cols, op.onsite, op.izo)
+    flat = psi.view(18 * (kk + 1), c)
+    e, scale = rel_err(torch.sparse.mm(csr, flat).view(kk, 18, c), y0)
+    check(e <= 1e-12 * scale, f"library SpMV orbital R={group}: {e}")
+    lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, flat), XC_ITERS)
+    records[name].update(max_abs_err=err, ms=t_k, plain_ms=t_p,
+                         bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    say(11, f"{name} d=18 R={group} (C={c}; lsham, no Gram): err "
+            f"{err:.3e}, reruns bit-identical; kernel {t_k:.4f} ms plain "
+            f"{t_p:.4f} ms bound {bound:.4f} ms ({by}, "
+            f"{100 * bound / t_k:.1f}% of it); {flops:.4e} flop "
+            f"{flops / t_k / 1e9:.2f} TFLOP/s, {moved:.4e} B; library "
+            f"torch.sparse.mm {lib_ms:.4f} ms; per start block "
+            f"{t_k / group:.4f} ms")
+    del psi, y, y0, y1, csr, flat
+    torch.cuda.empty_cache()
+    # the trace of the first ORB_HELD sites, K4 against plain
+    sites = np.linspace(0, kk - 1, nsites).astype(int)[:ORB_HELD]
+    xs, ys = (torch.as_tensor(np.append(cl.cr[:, k] * cl.alat, 0.0),
+                              device=dev) for k in (0, 1))
+    mus = [orbital.orbital_moments(op, xs, ys, sites, lld, *CHEB_AB,
+                                   ORB_HELD, plain=p)
+           for p in (False, False, True)]
+    err, scale = rel_err(mus[0], mus[2])
+    check(err <= 1e-11 * scale, f"orbital trace of {ORB_HELD} sites: {err}"
+          f" > 1e-11 * {scale}")
+    check(torch.equal(mus[0], mus[1]), "orbital trace reruns bit-identical")
+    say(11, f"orbital trace of {ORB_HELD} sites (lld {lld}), K4 vs plain: "
+            f"|d mu| {err:.3e} ({err / scale:.3e} of scale {scale:.4e}), "
+            f"reruns bit-identical")
+    del op, mus, sys30
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # orbital_modern at box 30 through K4 alone ----------------------
+        r_ = branch(configured(30, dev, window=WINDOW),
+                    os.path.join(tmp, "orbital"), post="orbital_modern")
+        om = r_["obj"]
+        launched(r_, orbital.launches(lld, nsites, om.group),
+                 f"orbital_modern box 30, {nsites} sites in groups of "
+                 f"{om.group}")
+        records[name]["launches"] = r_["launches"]["block_step"]
+        finite_numbers(os.path.join(r_["dir"], "fort.50"))
+
+        # bravais SCF, then the three p2rs branches on its export ---------
+        r_ = branch(configured(30, dev), os.path.join(tmp, "bravais"))
+        launched(r_, lld - 1, "bravais block SCF box 30 (rs2paoham.dat)")
+        src = os.path.join(tmp, "p2rs")
+        os.makedirs(src)
+        shutil.copy(os.path.join(r_["dir"], "rs2paoham.dat"),
+                    os.path.join(src, "paoham.dat"))
+        nlines = len(finite_numbers(os.path.join(src, "paoham.dat"))) // 7
+        say(11, f"rs2paoham.dat: {nlines} elements")
+        xsys = synthetic_exchange(configured(30, dev))
+        csys = configured(30, dev, window=WINDOW)
+        csys.cfg.control.cond_ll, csys.cfg.control.cond_calctype = \
+            COND_LL, "per_type"
+        for post, sys_, k4, out in (
+                ("paoflow2rs", configured(30, dev), lld - 1, "X_out.nml"),
+                ("exchange_p2rs", xsys, lld - 1, "jij.out"),
+                ("conductivity_p2rs", csys,
+                 kubo.launches(COND_LL, COND_LL, False), "cond_total.out")):
+            r_ = branch(sys_, os.path.join(tmp, post), post=post, src=src)
+            launched(r_, k4, f"{post} box 30")
+            if out.endswith(".out"):
+                finite_numbers(os.path.join(r_["dir"], out))
+            check(os.path.exists(os.path.join(r_["dir"], out)),
+                  f"{post} wrote {out}")
+        del xsys, csys
+
+        # sd at nsp=3 and the torques of one state ----------------------
+        r_ = branch(configured(30, dev, nsp=3), os.path.join(tmp, "sd"),
+                    proc="sd")
+        launched(r_, 3 * (lld - 1), "sd box 30 nsp=3, 2 steps (3 SCFs)")
+        traj = os.path.join(r_["dir"], "output.lammpstrj")
+        with open(traj) as fh:
+            check(fh.read().count("ITEM: TIMESTEP") == 2, "two frames")
+        scf = SelfConsistency(configured(30, dev, nsp=3),
+                              os.path.join(tmp, "sd"))
+        scf.run(nstep=1)
+        twin = copy.deepcopy(scf)
+        twin.sys.plain = True
+        for s_ in (scf, twin):
+            s_.run(nstep=1)
+        pots = [s_.sys.atoms[0].potential for s_ in (scf, twin)]
+        dm = max(float(np.abs(getattr(pots[0], k)
+                              - getattr(pots[1], k)).max())
+                 for k in ("mom0", "mom1", "mom"))
+        tq, tq0 = (magnetic_torques(s_.sys.atoms, s_.iz_rec)
+                   for s_ in (scf, twin))
+        dt_, scale = float(np.abs(tq - tq0).max()), float(np.abs(tq0).max())
+        check(dm <= 1e-10, f"sd step 1 moments K4 vs plain: {dm}")
+        check(dt_ <= TORQUE_BAR * scale, f"sd step 1 torques K4 vs plain: "
+              f"{dt_} > {TORQUE_BAR} * {scale}")
+        say(11, f"sd step 1 from one state, K4 vs plain: moments |d| "
+                f"{dm:.3e}, torques |d| {dt_:.3e} T ({dt_ / scale:.3e} of "
+                f"{scale:.4e} T)")
+        del scf, twin
+
+        # box 10: each branch on the card against the CPU -----------------
+        small = {}
+        for device in (dev, "cpu"):
+            tag = "cpu" if device == "cpu" else "cuda"
+            base = os.path.join(tmp, f"box10-{tag}")
+            out = small[tag] = {}
+            out["bravais"] = branch(configured(10, device),
+                                    os.path.join(base, "bravais"))
+            src10 = os.path.join(base, "p2rs")
+            os.makedirs(src10)
+            shutil.copy(os.path.join(base, "bravais", "rs2paoham.dat"),
+                        os.path.join(src10, "paoham.dat"))
+            out["paoflow2rs"] = branch(
+                configured(10, device), os.path.join(base, "paoflow2rs"),
+                post="paoflow2rs", src=src10)
+            xsys = synthetic_exchange(configured(10, device),
+                                      XC_SMALL_SHELLS)
+            xsys.cfg.control.lld = XC_SMALL_LLD
+            out["exchange_p2rs"] = branch(
+                xsys, os.path.join(base, "exchange_p2rs"),
+                post="exchange_p2rs", src=src10)
+            csys = configured(10, device, window=WINDOW)
+            csys.cfg.control.cond_ll, csys.cfg.control.cond_calctype = \
+                COND_SMALL_LL, "per_type"
+            out["conductivity_p2rs"] = branch(
+                csys, os.path.join(base, "conductivity_p2rs"),
+                post="conductivity_p2rs", src=src10)
+            osys = configured(10, device, window=WINDOW)
+            osys.cfg.control.lld = XC_SMALL_LLD
+            out["orbital"] = branch(
+                osys, os.path.join(base, "orbital"), post="orbital_modern",
+                run=lambda s_, w: orbital.OrbitalMoment(s_, w).run(
+                    n_sites=ORB_SMALL_SITES))
+            out["sd"] = branch(configured(10, device, nsp=3),
+                               os.path.join(base, "sd"), proc="sd")
+            if tag == "cuda":
+                for what, k4 in (
+                        ("bravais", lld - 1), ("paoflow2rs", lld - 1),
+                        ("exchange_p2rs", XC_SMALL_LLD - 1),
+                        ("conductivity_p2rs",
+                         kubo.launches(COND_SMALL_LL, COND_SMALL_LL, False)),
+                        ("orbital", orbital.launches(
+                            XC_SMALL_LLD, ORB_SMALL_SITES, ORB_SMALL_SITES)),
+                        ("sd", 3 * (lld - 1))):
+                    launched(out[what], k4, f"{what} box 10 cuda")
+            else:
+                for what, r_ in out.items():
+                    launched(r_, 0, f"{what} box 10 cpu")
+        for what in small["cpu"]:
+            d_cpu = small["cpu"][what]["dir"]
+            d_cuda = small["cuda"][what]["dir"]
+            if what == "sd":
+                # the trajectory: the SCFs' files carry the atomic-sphere
+                # solver's noise (ROADMAP queue 3)
+                nf, worst = 1, file_close(
+                    os.path.join(d_cpu, "output.lammpstrj"),
+                    os.path.join(d_cuda, "output.lammpstrj"))
+            else:
+                nf, worst = files_close(d_cpu, d_cuda)
+            say(11, f"{what} box 10 cuda vs cpu: files {worst:.3e} "
+                    f"({nf} files)")
+    say(11, f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -1720,6 +2057,9 @@ def main():
 
     # 10. conductivity --------------------------------------------------
     conductivity_phase(dev, records, every, templates)
+
+    # 11. the last branches --------------------------------------------
+    last_branches_phase(dev, records, every, templates)
     del templates, soc
     check("jax" not in sys.modules, "no JAX imported")
 
@@ -1729,7 +2069,7 @@ def main():
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"])
                for n, r in records.items()]
-    say(11, f"total {time.perf_counter() - t_start:.1f} s")
+    say(12, f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -9,16 +9,27 @@ Usage (reference ``source/os.f90 argument_parser`` :34-158 and
 Reads the namelist input and runs the self-consistent field of a bulk,
 surface or impurity cluster (``pre_processing`` ``none``, ``bravais``,
 ``buildsurf``, ``newclubulk`` or ``newclusurf``), writing the reference's
-output files (totaldos.out, <El>_out.nml, report.out, ...), or with
-``post_processing='exchange'`` the exchange couplings of a bulk or surface
-cluster (jij.out, dij.out, aij.out, jtens.out and the two-index files, or
-jijk.out for ``njijk > 0``), or with ``post_processing='conductivity'`` the
-Kubo-Bastin conductivity of a bulk or surface cluster (cond_total.out,
-cond_total_orb_{real,im}.out and, per type, <El>_cond.out and
-<El>_cond_orb_{real,im}.out), and prints the hierarchical timing report.
-The recursion runs on ``device`` (default ``cuda``; without a card that
-raises).  Every other ``&calculation`` branch raises
-``NotImplementedError`` naming its ROADMAP item.
+output files (totaldos.out, <El>_out.nml, report.out and, after a
+``bravais`` SCF, the PAOFLOW export rs2paoham.dat), and prints the
+hierarchical timing report.  The other ``&calculation`` branches:
+
+* ``post_processing='exchange'``: the exchange couplings of a bulk or
+  surface cluster (jij.out, dij.out, aij.out, jtens.out and the two-index
+  files, or jijk.out for ``njijk > 0``);
+* ``post_processing='conductivity'``: the Kubo-Bastin conductivity of a
+  bulk or surface cluster (cond_total.out, cond_total_orb_{real,im}.out
+  and, per type, <El>_cond.out and <El>_cond_orb_{real,im}.out);
+* ``post_processing='paoflow2rs'``, ``'exchange_p2rs'`` and
+  ``'conductivity_p2rs'``: the SCF, exchange or conductivity on the
+  Hamiltonian read from ``paoham.dat`` beside the input file;
+* ``post_processing='orbital_modern'``: the orbital moment's KPM trace
+  over ``min(kk, 2000)`` sites, written to fort.50;
+* ``processing='sd'``: atomistic spin dynamics (``&sd``), an SCF per step,
+  written to output.lammpstrj.
+
+The recursions run on ``device`` (default ``cuda``; without a card that
+raises).  ``&lattice write_artifacts`` raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,12 +47,7 @@ VALID_PRE = {"none", "bravais", "buildsurf", "newclubulk", "newclusurf"}
 VALID_PROC = {"none", "sd"}
 VALID_POST = {"none", "exchange", "exchange_p2rs", "conductivity",
               "conductivity_p2rs", "paoflow2rs", "orbital_modern"}
-# the branches still to port, by the ROADMAP queue-1 item that ports them
-NOT_PORTED = {"sd": "item 12 (spin dynamics)",
-              "exchange_p2rs": "item 12 (PAOFLOW)",
-              "paoflow2rs": "item 12 (PAOFLOW)",
-              "orbital_modern": "item 12 (orbital moment)",
-              "conductivity_p2rs": "item 12 (PAOFLOW)"}
+P2RS = ("paoflow2rs", "exchange_p2rs", "conductivity_p2rs")
 
 
 def parse_args(argv):
@@ -89,11 +95,6 @@ def run_calculation(cfg: JobConfig, workdir: str = ".",
         if val not in ok:
             g_logger.error(f"invalid calculation stage {val!r}")
             return 1
-    for val in (proc, post):
-        if val in NOT_PORTED:
-            raise NotImplementedError(
-                f"&calculation {val!r} is not ported yet: ROADMAP queue 1, "
-                f"{NOT_PORTED[val]}")
     if cfg.lattice.write_artifacts:
         raise NotImplementedError(
             "&lattice write_artifacts: the geometry exports are ROADMAP "
@@ -102,21 +103,58 @@ def run_calculation(cfg: JobConfig, workdir: str = ".",
     from .models.bulk import BulkSystem
 
     os.makedirs(workdir, exist_ok=True)
-    sys_ = BulkSystem.build(cfg, workdir, device=device)
-    if post == "exchange":
-        run_exchange(sys_, workdir)
-    elif post == "conductivity":
-        from .models.conductivity import ConductivityCalculation
-
-        ConductivityCalculation(sys_, workdir).run(
-            cond_type=cfg.control.cond_type)
-    else:
-        run_scf(sys_, workdir, pre)
+    run_system(BulkSystem.build(cfg, workdir, device=device), workdir)
     print(g_timer.report())
     from .utils.alloc import g_alloc
 
     print(g_alloc.report())
     return 0
+
+
+def run_system(sys_, workdir: str):
+    """The ``&calculation`` branches of ``sys_.cfg`` on a built system
+    (``paoham.dat`` is read beside ``cfg.control.fname``); returns the
+    branch's calculation object."""
+    calc = sys_.cfg.calculation
+    pre = (calc.pre_processing or "none").strip()
+    proc = (calc.processing or "none").strip()
+    post = (calc.post_processing or "none").strip()
+    if post in P2RS:
+        # an external PAOFLOW TB Hamiltonian in place of the LMTO-built one
+        # (post_processing_paoflow2rs, calculation.f90 :643-838); every
+        # recursion operator is built after it
+        from .models.paoflow import import_paoflow
+
+        sys_.build_hamiltonian()
+        import_paoflow(sys_, os.path.join(os.path.dirname(os.path.abspath(
+            sys_.cfg.control.fname or "input.nml")), "paoham.dat"))
+        sys_.freeze_ham = True
+    if post in ("exchange", "exchange_p2rs"):
+        return run_exchange(sys_, workdir)
+    if post in ("conductivity", "conductivity_p2rs"):
+        from .models.conductivity import ConductivityCalculation
+
+        calc = ConductivityCalculation(sys_, workdir)
+        calc.run(cond_type=sys_.cfg.control.cond_type)
+    elif post == "orbital_modern":
+        from .models.orbital import OrbitalMoment
+
+        # the exact trace up to 2000 sites, a subsample beyond
+        calc = OrbitalMoment(sys_, workdir)
+        calc.run(n_sites=min(sys_.cluster.kk, 2000))
+    elif post == "paoflow2rs":
+        from .models.scf import SelfConsistency
+
+        calc = SelfConsistency(sys_, workdir)
+        calc.run()
+    elif proc == "sd":
+        from .models.spin_dynamics import SpinDynamics
+
+        calc = SpinDynamics(sys_, workdir)
+        calc.run()
+    else:
+        calc = run_scf(sys_, workdir, pre)
+    return calc
 
 
 def run_exchange(sys_, workdir: str):
@@ -137,6 +175,7 @@ def run_exchange(sys_, workdir: str):
         xc = ExchangeCalculation(sys_, lat.ijpair, workdir)
         xc.run()
         xc.calculate_exchange_twoindex()
+    return xc
 
 
 def run_scf(sys_, workdir: str, pre: str):
@@ -152,12 +191,13 @@ def run_scf(sys_, workdir: str, pre: str):
     )
     scf.report()
     if pre == "bravais" and getattr(scf, "bands", None) is not None:
-        # post-SCF export of pre_processing_bravais (calculation.f90
-        # :619-621); the rs2pao export beside it is PAOFLOW, ROADMAP
-        # queue 1, item 12
-        g_logger.warning("rs2paoham.dat not written: the PAOFLOW export "
-                         "is not ported yet (ROADMAP queue 1, item 12)")
+        # post-SCF exports of pre_processing_bravais (calculation.f90
+        # :619-621): rs2pao + orbital quadrupoles
+        from .models.paoflow import export_rs2pao
+
+        export_rs2pao(sys_, os.path.join(workdir, "rs2paoham.dat"))
         scf.bands.calculate_orbital_quadrupoles(scf.last_g0, workdir)
+    return scf
 
 
 if __name__ == "__main__":

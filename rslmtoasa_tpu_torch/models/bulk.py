@@ -79,6 +79,8 @@ class BulkSystem:
     # run the recursions through the kernels' plain versions (on any
     # device): the reference a card run is checked against
     plain: bool = False
+    # keep ``ham`` as it is (a PAOFLOW-imported Hamiltonian)
+    freeze_ham: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(
@@ -156,7 +158,12 @@ class BulkSystem:
 
     # ------------------------------------------------------------------
     def build_hamiltonian(self) -> HamiltonianBlocks:
-        """``run_recursion`` setup part: build_pot + build_bulkham."""
+        """``run_recursion`` setup part: build_pot + build_bulkham.
+
+        When ``freeze_ham`` is set (PAOFLOW-imported Hamiltonians), the
+        existing blocks are kept as they are."""
+        if self.freeze_ham and self.ham is not None:
+            return self.ham
         for at in self.atoms:
             at.potential.build_pot()
         with g_timer.section("build-bulkham"):

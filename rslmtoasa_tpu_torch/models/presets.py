@@ -294,11 +294,12 @@ def build_synthetic_exchange(nshell: int = EXCHANGE_SHELLS, **kw):
 
 
 def _write_input(sys_, where: str, lattice: dict, control: dict,
-                 post: str) -> str:
+                 post: str, sd=None) -> str:
     """``input.nml`` of a run of a spherical bcc preset (no ``box``) with
     post-processing ``post``, the ``&lattice`` and ``&control`` entries
-    given added, and its element files, into the directory ``where``;
-    returns the input's path."""
+    given added, with ``sd`` (the entries of ``&sd``) ``processing='sd'``,
+    and its element files, into the directory ``where``; returns the
+    input's path."""
     from .scf import SelfConsistency
 
     cfg = sys_.cfg
@@ -306,6 +307,7 @@ def _write_input(sys_, where: str, lattice: dict, control: dict,
     text = "".join([
         write_namelist("calculation", {
             "pre_processing": cfg.calculation.pre_processing,
+            "processing": "none" if sd is None else "sd",
             "post_processing": post}),
         write_namelist("control", {
             "calctype": ctl.calctype, "nsp": ctl.nsp, "lld": ctl.lld,
@@ -320,6 +322,7 @@ def _write_input(sys_, where: str, lattice: dict, control: dict,
             "channels_ldos": en.channels_ldos, "energy_min": en.energy_min,
             "energy_max": en.energy_max, "fermi": en.fermi}),
         write_namelist("hamiltonian", {"hoh": cfg.hamiltonian.hoh}),
+        "" if sd is None else write_namelist("sd", sd),
     ])
     path = os.path.join(where, "input.nml")
     with open(path, "w") as fh:
@@ -343,15 +346,25 @@ def write_exchange_input(sys_, where: str) -> str:
                         sys_.cfg.calculation.post_processing)
 
 
-def write_conductivity_input(sys_, where: str) -> str:
-    """``input.nml`` of a conductivity run (``post_processing=
-    'conductivity'``) of a spherical bcc preset, with its ``&control``
-    moments (``cond_ll``), start units (``cond_calctype``,
-    ``random_vec_num``) and operators (``linear_in``, ``linear_out``), and
-    its element files, into the directory ``where``; returns the input's
-    path."""
+def write_conductivity_input(sys_, where: str,
+                             post: str = "conductivity") -> str:
+    """``input.nml`` of a conductivity run (``post_processing`` ``post``:
+    ``'conductivity'`` or ``'conductivity_p2rs'``) of a spherical bcc
+    preset, with its ``&control`` moments (``cond_ll``), start units
+    (``cond_calctype``, ``random_vec_num``) and operators (``linear_in``,
+    ``linear_out``), and its element files, into the directory ``where``;
+    returns the input's path."""
     ctl = sys_.cfg.control
     return _write_input(sys_, where, {}, {
         "cond_ll": ctl.cond_ll, "cond_calctype": ctl.cond_calctype,
         "random_vec_num": ctl.random_vec_num, "linear_in": ctl.linear_in,
-        "linear_out": ctl.linear_out}, "conductivity")
+        "linear_out": ctl.linear_out}, post)
+
+
+def write_input(sys_, where: str, post: str = "none", sd=None) -> str:
+    """``input.nml`` of an SCF-driven run of a spherical bcc preset
+    (``post_processing`` ``post``: ``'none'``, ``'paoflow2rs'`` or
+    ``'orbital_modern'``; with ``sd``, the entries of ``&sd``,
+    ``processing='sd'``) and its element files, into the directory
+    ``where``; returns the input's path."""
+    return _write_input(sys_, where, {}, {}, post, sd)

@@ -24,7 +24,8 @@ random-phase vectors.
   package's moments;
 * both command-line drivers on one conductivity input, ``per_type`` and
   ``random_vec``, HoH off and on;
-* the impurity cluster and ``conductivity_p2rs`` raise.
+* the impurity cluster and the geometry exports beside
+  ``conductivity_p2rs`` raise.
 """
 
 import copy
@@ -375,13 +376,14 @@ def test_cli_matches_jax_cli(tmp_path, capsys, units, hoh):
 
 
 def test_refusals(tmp_path):
-    """The impurity cluster raises, naming its ROADMAP entry, and
-    ``conductivity_p2rs`` is PAOFLOW's (item 12)."""
+    """The impurity cluster raises, naming its ROADMAP entry, and so do
+    the geometry exports beside ``conductivity_p2rs`` (item 14)."""
     cfg = presets.synthetic_embedded_config("I", 12.0, 8, 2)
     isys = presets.build_synthetic_embedded(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 3"):
         pcond.ConductivityCalculation(isys, str(tmp_path))
     psys = presets.build_synthetic_bcc(rc=RC, lld=4, nsp=2, device="cpu")
     psys.cfg.calculation.post_processing = "conductivity_p2rs"
-    with pytest.raises(NotImplementedError, match="item 12"):
+    psys.cfg.lattice.write_artifacts = True
+    with pytest.raises(NotImplementedError, match="item 14"):
         cli.run_calculation(psys.cfg, str(tmp_path), device="cpu")

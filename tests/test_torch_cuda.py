@@ -1,6 +1,7 @@
 """The CUDA kernels (Haydock K1'-K3', block step K4) against their plain
-versions, and the Green functions, the exchange pair recursion and the
-Kubo moments against the same torch code on the CPU, on the card.
+versions, and the Green functions, the exchange pair recursion, the Kubo
+moments and the orbital moment's trace against the same torch code on the
+CPU, on the card.
 
 Marked ``gpu``: without a CUDA card every test skips (the check is made
 in the fixture, never at import).  On a machine with one, run
@@ -16,6 +17,7 @@ from rslmtoasa_tpu_torch.models.conductivity import (
     ConductivityCalculation,
     build_velocity_operators,
 )
+from rslmtoasa_tpu_torch.models import orbital
 from rslmtoasa_tpu_torch.models.exchange import (
     ExchangeCalculation,
     pair_start_vectors,
@@ -531,3 +533,49 @@ def test_kubo_moments_on_card_matches_cpu(card, hoh, tmp_path):
     assert mu.shape == (18, 18, 12, 12, 2)
     assert (mu - mu0).abs().max() <= BAR * mu0.abs().max()
     assert np.abs(ig - ig0).max() <= BAR * np.abs(ig0).max()
+
+
+# ----------------------------------------------------------------------
+# the orbital moment
+@pytest.mark.parametrize("r", [1, 16])
+def test_block_step_kernel_orbital_form(block_system, card, r):
+    """K4 in the orbital form: R start blocks, the lsham onsite term, no
+    Gram, a zero row kk appended by the caller; against its plain version
+    within 1e-12 of scale, a rerun bit-identical, one launch."""
+    hb = block_system.ham
+    op = BlockOperator(hb.ee, hb.iz, hb.cols, hb.lsham).to(card)
+    psi = _blocks(hb.kk, 18, r, 31, card)
+    n = bk.block_step.launches
+    y, g = op(psi)
+    assert bk.block_step.launches == n + 1 and g is None
+    y0, _ = op(psi, plain=True)
+    torch.cuda.synchronize()
+    assert y.shape == y0.shape == (hb.kk, 18, 18 * r)
+    assert (y - y0).abs().max() <= BAR * y0.abs().max()
+    assert torch.equal(y, op(psi)[0])
+
+
+def test_orbital_moment_on_card_matches_cpu(card, tmp_path):
+    """The orbital trace over 40 sites of the bcc preset (nsp=2) in groups
+    of 16 through K4 on the card against the same on the CPU: mu within
+    1e-12 of scale, Lz(E) too; K4 launched ``orbital.launches`` times."""
+    out = []
+    for device in (card, "cpu"):
+        sys_ = build_synthetic_bcc(rc=12.0, ndim=4000, lld=10, nsp=2,
+                                   device=device)
+        cl, hb = sys_.cluster, sys_.ham
+        op = BlockOperator(hb.ee, hb.iz, hb.cols, hb.lsham).to(device)
+        xy = [torch.as_tensor(np.append(cl.cr[:, k] * cl.alat, 0.0),
+                              device=device) for k in (0, 1)]
+        sites = np.linspace(0, cl.kk - 1, 40).astype(int)
+        n = bk.block_step.launches
+        mu = orbital.orbital_moments(op, *xy, sites, 10, 1.5 / 1.7, -0.25,
+                                     16)
+        assert bk.block_step.launches - n == (
+            orbital.launches(10, 40, 16) if device == card else 0)
+        lz = orbital.OrbitalMoment(sys_, str(tmp_path)).run(n_sites=40,
+                                                           group=16)
+        out.append((mu.cpu(), lz))
+    (mu, lz), (mu0, lz0) = out
+    assert (mu - mu0).abs().max() <= BAR * mu0.abs().max()
+    assert np.abs(lz - lz0).max() <= BAR * np.abs(lz0).max()

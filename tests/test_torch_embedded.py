@@ -471,7 +471,7 @@ def test_cli_matches_jax_cli(tmp_path, capsys, case):
                       "device=cpu"]) == 0
     capsys.readouterr()
     files = set(os.listdir(dirs["torch"]))
-    assert files == set(os.listdir(dirs["jax"])) - {"rs2paoham.dat"}
+    assert files == set(os.listdir(dirs["jax"]))
     assert {"totaldos.out", "report.out", "X_out.nml"} <= files
     for fname in sorted(files):
         _assert_printed_close(dirs["jax"] / fname, dirs["torch"] / fname)

@@ -33,7 +33,8 @@ and the nn) and the bcc(001) slab of ``tests/test_torch_embedded.py``
 * both command-line drivers on one exchange input, pairs and trio routes;
 * on a 300-channel mesh (E = 1e-16 on it) the port's onsite pair completes
   where the JAX package raises (ROADMAP queue 3); the impurity cluster and
-  ``exchange_p2rs`` are refused.
+  the geometry exports (``write_artifacts``, also beside ``exchange_p2rs``,
+  ``conductivity_p2rs`` and ``orbital_modern``) are refused.
 """
 
 import copy
@@ -480,8 +481,9 @@ def test_zero_chains_never_reach_the_green_function(tmp_path):
 
 
 def test_refusals(tmp_path):
-    """The impurity cluster and the branches still to port raise, naming
-    their ROADMAP entry; pairs outside the cluster raise."""
+    """The impurity cluster and the geometry exports still to port raise,
+    naming their ROADMAP entry, whatever the branch; pairs outside the
+    cluster raise."""
     cfg = presets.synthetic_embedded_config("I", 12.0, LLD, 2)
     isys = presets.build_synthetic_embedded(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 3"):
@@ -490,9 +492,10 @@ def test_refusals(tmp_path):
     for bad in ([[1, 0]], [[1, psys.cluster.kk + 1]], [1, 2]):
         with pytest.raises(ValueError, match="pairs"):
             ExchangeCalculation(psys, np.array(bad), str(tmp_path))
-    for post, item in (("exchange_p2rs", "item 12"),
-                       ("conductivity_p2rs", "item 12"),
-                       ("orbital_modern", "item 12")):
+    psys.cfg.lattice.write_artifacts = True
+    for post, item in (("exchange_p2rs", "item 14"),
+                       ("conductivity_p2rs", "item 14"),
+                       ("orbital_modern", "item 14")):
         psys.cfg.calculation.post_processing = post
         with pytest.raises(NotImplementedError, match=item):
             cli.run_calculation(psys.cfg, str(tmp_path), device="cpu")

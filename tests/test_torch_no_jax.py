@@ -29,7 +29,10 @@ assert {"rslmtoasa_tpu_torch.geometry.surface",
         "rslmtoasa_tpu_torch.physics.madelung_surf",
         "rslmtoasa_tpu_torch.models.exchange",
         "rslmtoasa_tpu_torch.models.conductivity",
-        "rslmtoasa_tpu_torch.ops.kubo"} <= set(names)
+        "rslmtoasa_tpu_torch.ops.kubo",
+        "rslmtoasa_tpu_torch.models.paoflow",
+        "rslmtoasa_tpu_torch.models.orbital",
+        "rslmtoasa_tpu_torch.models.spin_dynamics"} <= set(names)
 
 from rslmtoasa_tpu_torch.ops.lanczos import (
     HaydockOperator, scalar_start_vectors)

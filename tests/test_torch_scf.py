@@ -124,7 +124,7 @@ def _input_text(cfg):
 def test_cli_matches_jax_cli(tmp_path, capsys):
     """Both drivers on the same input.nml and X.nml (the element file
     written by the JAX package's checkpoint writer) write the same files;
-    the JAX driver's one extra file is the PAOFLOW export, not ported."""
+    the PAOFLOW export rs2paoham.dat among them."""
     src = tmp_path / "src"
     src.mkdir()
     JaxSCF(jax_bcc(**PRESET), workdir=str(src)).save_checkpoints()
@@ -141,9 +141,9 @@ def test_cli_matches_jax_cli(tmp_path, capsys):
     capsys.readouterr()
     jax_files = set(os.listdir(dirs["jax"]))
     torch_files = set(os.listdir(dirs["torch"]))
-    assert jax_files - torch_files == {"rs2paoham.dat"}
-    assert torch_files <= jax_files
-    assert {"totaldos.out", "X_out.nml", "report.out"} <= torch_files
+    assert torch_files == jax_files
+    assert {"totaldos.out", "X_out.nml", "report.out",
+            "rs2paoham.dat"} <= torch_files
     for fname in sorted(torch_files):
         _assert_files_close(dirs["jax"] / fname, dirs["torch"] / fname)
 
