@@ -28,8 +28,9 @@ hierarchical timing report.  The other ``&calculation`` branches:
   written to output.lammpstrj.
 
 The recursions run on ``device`` (default ``cuda``; without a card that
-raises).  ``&lattice write_artifacts`` raises ``NotImplementedError``
-naming its ROADMAP item.
+raises).  ``&lattice write_artifacts`` (or ``RSLMTO_WRITE_GEOM``) writes
+the geometry exports ``clust``, ``map``, ``str.out``, ``sbar`` and
+``view.sbar`` after the system is built (``utils/artifacts.py``).
 """
 
 from __future__ import annotations
@@ -95,15 +96,17 @@ def run_calculation(cfg: JobConfig, workdir: str = ".",
         if val not in ok:
             g_logger.error(f"invalid calculation stage {val!r}")
             return 1
-    if cfg.lattice.write_artifacts:
-        raise NotImplementedError(
-            "&lattice write_artifacts: the geometry exports are ROADMAP "
-            "queue 1, item 14 (entry points)")
 
     from .models.bulk import BulkSystem
+    from .utils import artifacts
 
     os.makedirs(workdir, exist_ok=True)
-    run_system(BulkSystem.build(cfg, workdir, device=device), workdir)
+    sys_ = BulkSystem.build(cfg, workdir, device=device)
+    if artifacts.wanted(cfg):
+        # clust/map/sbar/str.out interop exports (structb writes,
+        # lattice.f90:1819+)
+        artifacts.export_geometry(sys_, workdir)
+    run_system(sys_, workdir)
     print(g_timer.report())
     from .utils.alloc import g_alloc
 

@@ -35,9 +35,13 @@ from ..ops.block_lanczos import (
     block_lanczos,
     block_start_vectors,
 )
-from ..ops.lanczos import HaydockOperator, scalar_start_vectors
+from ..ops.lanczos import scalar_start_vectors
 from ..ops.ldos import orbital_density
-from ..parallel.dispatch import block_lanczos_auto, chebyshev_moments_auto
+from ..parallel.dispatch import (
+    block_lanczos_auto,
+    chebyshev_moments_auto,
+    lanczos_auto,
+)
 from ..physics.energy_mesh import EnergyMesh
 from ..physics.hamiltonian import HamiltonianBlocks, build_bulkham
 from ..physics.harmonics import rotmag_loc
@@ -195,10 +199,10 @@ class BulkSystem:
             b_list = []
             for s in (0, 1):  # spin channels are decoupled for nsp=1
                 blk = hb.ee[:, :, 9 * s : 9 * (s + 1), 9 * s : 9 * (s + 1)]
-                op = HaydockOperator(blk, hb.iz, hb.cols).to(self.device)
-                a, b2 = op.coefficients(psi0, lld, plain=self.plain)
-                a_list.append(a.cpu().numpy())
-                b_list.append(b2.cpu().numpy())
+                a, b2 = lanczos_auto(blk, hb.iz, hb.cols, psi0, lld,
+                                     plain=self.plain)
+                a_list.append(a)
+                b_list.append(b2)
         nrec = len(rec_atoms)
         # chains are laid out c = atom*9 + orbital; merge spins -> 18
         a = np.zeros((lld, 18, nrec))

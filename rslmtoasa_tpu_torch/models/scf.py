@@ -6,10 +6,12 @@ mixing -> Madelung -> atomic-sphere SCF (host) -> orthogonal->TB transform
 ``totaldos.out`` rows and ``<El>_out.nml`` checkpoints.
 
 The port runs the bulk (``calctype='B'``), surface (``'S'``) and impurity
-(``'I'``) branches with the native atomic-sphere solver: the bulk with each
-of its recursions (``recur`` ``'lanczos'``, ``'block'``, ``'chebyshev'``),
-the surface and the impurity with the block and Chebyshev ones.  The
-other branches raise ``NotImplementedError`` naming their ROADMAP item.
+(``'I'``) branches: the bulk with each of its recursions (``recur``
+``'lanczos'``, ``'block'``, ``'chebyshev'``), the surface and the impurity
+with the block and Chebyshev ones.  The atomic spheres run on the native
+solver for the LDA functionals, and on the Python one
+(:mod:`..physics.atomsphere`) for the gradient functionals (``txc`` 5, 8,
+9) and ``hyperfine``, as the JAX package routes them.
 """
 
 from __future__ import annotations
@@ -23,12 +25,14 @@ import numpy as np
 from ..ops.block_lanczos import zsqr
 from ..ops.chebyshev import chebyshev_green
 from ..ops.lanczos import roll_selected
+from ..physics.atomsphere import atomsc, potpar, racsi
 from ..physics.bands import Bands
 from ..physics.energy_mesh import EnergyMesh
 from ..physics.greens import bgreen, get_terminf
 from ..physics.madelung import MadelungMatrix, bulkpot, impmad, imppot
 from ..physics.madelung_surf import SurfaceMadelung, build_alelay, surfpot
 from ..physics.mixer import Mixer
+from ..physics.radial import mesh_b
 from ..utils.logger import g_logger
 from ..utils.namelist import write_namelist
 from ..utils.timer import g_timer
@@ -96,12 +100,6 @@ def magnetic_torques(atoms, iz_rec) -> np.ndarray:
         i_loc = pref_0 * p.mom0 - pref_1 * p.mom1
         out[:, na] = i_loc * RY2TESLA
     return out
-
-
-# where each branch the port does not run yet is queued (ROADMAP.md)
-ROADMAP_ITEM = {
-    "atomsphere": "queue 1, item 15 (the Python atomic-sphere solver)",
-}
 
 
 class SelfConsistency:
@@ -288,23 +286,24 @@ class SelfConsistency:
     # ------------------------------------------------------------------
     def run_scf(self):
         """Per-atom atomic-sphere SCF + potential parameters + predls
-        (``run_scf`` :861-912 and ``lmtst`` :1135-1186), on the native
-        solver."""
+        (``run_scf`` :861-912 and ``lmtst`` :1135-1186): on the native
+        solver for the LDA functionals, on the Python one for the gradient
+        functionals and ``hyperfine``."""
         from .. import native
 
         cfg = self.cfg
         wsm = self.sys.cluster.wav * ANG2AU
         # the C++ solver implements the LDA functionals only and no
-        # hyperfine accumulation; the rest needs the Python solver
-        if cfg.control.txc in (5, 8, 9) or cfg.control.hyperfine:
-            raise NotImplementedError(
-                f"txc={cfg.control.txc}, hyperfine={cfg.control.hyperfine} "
-                f"need the Python atomic-sphere solver: ROADMAP "
-                f"{ROADMAP_ITEM['atomsphere']}")
+        # hyperfine accumulation; those paths run the Python solver
+        use_native = (cfg.control.txc not in (5, 8, 9)
+                      and not cfg.control.hyperfine)
         for ia, isp in enumerate(self.iz_rec):
             at = self.sys.atoms[isp]
             pot = at.potential
-            res = native.atomsc_native(
+            solver = native.atomsc_native if use_native else atomsc
+            kwargs = {} if use_native else dict(
+                hyperfine=bool(cfg.control.hyperfine))
+            res = solver(
                 z=at.element.atomic_number,
                 lmax=pot.lmax,
                 a=0.02,
@@ -313,16 +312,23 @@ class SelfConsistency:
                 ql=pot.ql,
                 ifcore=at.element.f_core,
                 txc=cfg.control.txc,
+                **kwargs,
             )
+            if getattr(res, "hyper_field", None) is not None:
+                pot.hyper_field = res.hyper_field
+                g_logger.info(
+                    f"Hyperfine field for atom {ia + 1}: H_core="
+                    f"{res.hyper_field[0]:8.3f} T, H_val="
+                    f"{res.hyper_field[1]:8.3f} T.")
             pot.etot = res.etot
             pot.utot = res.utot
             pot.ekin = res.ekin
             pot.rhoeps = res.rhoeps
             pot.sumev = res.sumev
             pot.sumec = res.sumec
-            qsl = native.racsi_native(
-                0.02, native.mesh_b(pot.ws_r, 0.02, res.nr), res.rofi,
-                res.fun2, res.vzt)
+            racsi_fn = native.racsi_native if use_native else racsi
+            qsl = racsi_fn(0.02, mesh_b(pot.ws_r, 0.02, res.nr),
+                           res.rofi, res.fun2, res.vzt)
             pot.xi_p = np.array([qsl[0], qsl[3]])
             pot.xi_d = np.array([qsl[1], qsl[4]])
             pot.rac = np.array([qsl[2], qsl[5]])
@@ -331,9 +337,9 @@ class SelfConsistency:
                     getattr(pot, k)[:] = 0.0
             else:
                 pot.pnu = pot.pl.copy()
-                out = native.potpar_native(
-                    at.element.atomic_number, pot.lmax, 0.02, pot.ws_r,
-                    pot.pnu, res.v, res.rofi)
+                potpar_fn = native.potpar_native if use_native else potpar
+                out = potpar_fn(at.element.atomic_number, pot.lmax, 0.02,
+                                pot.ws_r, pot.pnu, res.v, res.rofi)
                 pot.enu = out["enu"]
                 pot.c = out["c"]
                 pot.srdel = out["srdel"]

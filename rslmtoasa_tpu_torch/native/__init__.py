@@ -4,8 +4,9 @@ The source is this package's own ``csrc/radial.cpp`` (a byte-for-byte
 copy of the JAX package's ``native/radial.cpp``; a test holds the two
 equal).  It is built with g++ on first use, on the machine that runs it,
 into this package's ``_build/libradial.so``; nothing is written beside
-the source.  The port has no Python atomic-sphere solver yet, so a
-failed build raises.
+the source.  A failed build raises: the Python solver
+(``physics/atomsphere.py``) runs only what this one lacks, the gradient
+functionals and the hyperfine fields.
 """
 
 from __future__ import annotations
@@ -42,12 +43,6 @@ class AtomSCFResult:
     fun2: np.ndarray = None  # (nr, 3, 2) valence probability densities
     vzt: np.ndarray = None  # (nr, 2) v - 2Z/r
     nr: int = 0
-
-
-def mesh_b(ws_r: float, a: float, nr: int) -> float:
-    """Radial mesh scale b of ``rofi(i) = b (e^{a i} - 1)``
-    (``physics/radial.py`` ``mesh_b`` of the JAX package)."""
-    return ws_r / (np.exp(a * nr - a) - 1.0)
 
 
 def _build() -> None:

@@ -124,18 +124,24 @@ class LocalZone:
     tables as they are.  The rows from ``nl`` on read tables compacted to
     the types they use: ``types`` (sorted) of the row table with ``iz``
     renumbered into it, ``otypes`` of the onsite table with ``izo``
-    (both 0 below ``nl``, where they are not read)."""
+    (both 0 below ``nl``, where they are not read).
 
-    def __init__(self, nl, types, iz, otypes, izo):
+    ``pack`` and ``pack_onsite`` pack the rows of a table that the tiles
+    past the zone read; K4's table cache keys on them, and a zone's
+    :meth:`prefix` shares them, so that the stages of a wavefront pack
+    each table once."""
+
+    def __init__(self, nl, types, iz, otypes, izo, packs=None):
         self.nl, self.types, self.iz = nl, types, iz
         self.otypes, self.izo = otypes, izo
+        self.pack, self.pack_onsite = packs or (
+            lambda tab: pack_table(tab[types]),
+            lambda onsite: pack_onsite(onsite[otypes]))
 
-    def pack(self, tab: torch.Tensor) -> torch.Tensor:
-        """The packed rows of ``tab`` that the tiles past the zone read."""
-        return pack_table(tab[self.types])
-
-    def pack_onsite(self, onsite: torch.Tensor) -> torch.Tensor:
-        return pack_onsite(onsite[self.otypes])
+    def prefix(self, n: int) -> "LocalZone":
+        """The same route on the first ``n`` rows."""
+        return LocalZone(self.nl, self.types, self.iz[:n], self.otypes,
+                         self.izo[:n], (self.pack, self.pack_onsite))
 
 
 def local_zone(nmax: int, d: int, iz: torch.Tensor, ntab: int,

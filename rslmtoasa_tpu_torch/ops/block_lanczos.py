@@ -32,6 +32,8 @@ import torch
 from torch import nn
 
 from . import block_kernels as bk
+from .haydock_kernels import prefix_tables
+from .lanczos import as_table, check_stages, grow_rows
 
 
 def port_layout(psi: np.ndarray) -> np.ndarray:
@@ -53,11 +55,8 @@ class BlockOperator(nn.Module):
     def __init__(self, hs, iz, cols, lsham, iz_onsite=None, hoh: bool = False,
                  hso=None, enim=None, nmax: int = 0):
         super().__init__()
-        z = torch.complex128
-        as_c = lambda a: torch.as_tensor(  # noqa: E731
-            np.ascontiguousarray(a), dtype=z)
-        as_i = lambda a: torch.as_tensor(  # noqa: E731
-            np.ascontiguousarray(a), dtype=torch.int32)
+        as_c = lambda a: as_table(a, torch.complex128)  # noqa: E731
+        as_i = lambda a: as_table(a, torch.int32)  # noqa: E731
         self.hoh = bool(hoh)
         self.nmax = int(nmax)
         self._zone = None
@@ -86,6 +85,27 @@ class BlockOperator(nn.Module):
                 self.nmax, self.hs.shape[-1], self.iz, self.hs.shape[0],
                 self.izo, self.onsite.shape[0]))
         return self._zone[1]
+
+    def prefix(self, n: int) -> "BlockOperator":
+        """The operator on the first ``n`` rows, every column beyond them
+        sent to the zero row ``n`` (a wavefront stage).  It shares the
+        tables, so that K4 packs them once for all stages, and takes the
+        local zone's route on the same rows."""
+        if n == self.kk:
+            return self
+        op = BlockOperator.__new__(BlockOperator)
+        nn.Module.__init__(op)
+        op.hoh, op.nmax = self.hoh, self.nmax
+        for name, buf in self._buffers.items():
+            op.register_buffer(name, buf)
+        if not self.hoh:
+            op.hso_neg = None
+        op.iz, op.cols = prefix_tables(self.iz, self.cols, n)
+        op.izo = self.izo[:n]
+        zone = self.zone()
+        op._zone = (self.iz.device, None if zone is None
+                    else zone.prefix(n))
+        return op
 
     def hs_apply(self, psi: torch.Tensor, plain: bool = False
                  ) -> torch.Tensor:
@@ -147,32 +167,43 @@ def eig_sqrt(b2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def block_lanczos(op: BlockOperator, psi0: torch.Tensor, lld: int,
-                  plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                  plain: bool = False,
+                  stages: Optional[Sequence[Tuple[int, int]]] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the block recursion from ``psi0`` (kk+1, d, R d) on ``op``'s
     device.  Returns (a_b, b2_b) of shape (lld, R, d, d) with the reference
     conventions: b2_b[0] = I, a_b[lld-1] = 0, b2_b[lld-1] = the last
-    residual Gram.  ``plain=True`` runs the plain versions."""
+    residual Gram.  ``plain=True`` runs the plain versions.  ``stages``
+    ``((n, steps), ...)`` runs the steps on row prefixes of ``op``
+    (:meth:`BlockOperator.prefix`), the vectors grown by zero rows between
+    stages (the wavefront, :mod:`.wavefront`); ``psi0`` then holds the
+    first stage's n + 1 rows."""
     kk1, d, c = psi0.shape
-    kk, r = kk1 - 1, c // d
+    r = c // d
     dev = psi0.device
     a_b = torch.zeros((lld, r, d, d), dtype=psi0.dtype, device=dev)
     b2_b = torch.zeros_like(a_b)
     sum_b = torch.eye(d, dtype=psi0.dtype, device=dev).expand(r, d, d)
     psi = psi0
-    pmn = torch.zeros((kk, d, c), dtype=psi0.dtype, device=dev)
-    for ll in range(lld - 1):
-        hpsi, g = op(psi, gram=True, plain=plain)
-        a_ll = g.sum(0)
-        pmn = hpsi - pmn
-        pmn = pmn - block_times(psi[:kk], a_ll)
-        b2 = gram_sum(pmn.conj(), pmn)
-        b, b_i = eig_sqrt(b2)
-        psi_new = pad_row(block_times(pmn, b_i))
-        pmn = block_times(psi[:kk], b)
-        psi = psi_new
-        a_b[ll] = a_ll
-        b2_b[ll] = sum_b
-        sum_b = b2
+    pmn = torch.zeros((kk1 - 1, d, c), dtype=psi0.dtype, device=dev)
+    ll = 0
+    for kk, steps in check_stages(stages, op.kk, kk1 - 1, lld - 1):
+        op_n = op.prefix(kk)
+        psi, pmn = grow_rows(psi, kk + 1), grow_rows(pmn, kk)
+        for _ in range(steps):
+            hpsi, g = op_n(psi, gram=True, plain=plain)
+            a_ll = g.sum(0)
+            pmn = hpsi - pmn
+            pmn = pmn - block_times(psi[:kk], a_ll)
+            b2 = gram_sum(pmn.conj(), pmn)
+            b, b_i = eig_sqrt(b2)
+            psi_new = pad_row(block_times(pmn, b_i))
+            pmn = block_times(psi[:kk], b)
+            psi = psi_new
+            a_b[ll] = a_ll
+            b2_b[ll] = sum_b
+            sum_b = b2
+            ll += 1
     b2_b[lld - 1] = sum_b
     return a_b, b2_b
 

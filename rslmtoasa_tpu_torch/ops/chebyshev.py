@@ -13,36 +13,48 @@ names, batched over the rec atoms.
 
 from __future__ import annotations
 
+from typing import Optional, Sequence, Tuple
+
 import numpy as np
 import torch
 
 from .block_lanczos import BlockOperator, gram_sum, pad_row
+from .lanczos import check_stages, grow_rows
 
 
 def chebyshev_moments(op: BlockOperator, psi0: torch.Tensor, lld: int,
-                      a: float, b: float, plain: bool = False
+                      a: float, b: float, plain: bool = False,
+                      stages: Optional[Sequence[Tuple[int, int]]] = None
                       ) -> torch.Tensor:
     """Block Chebyshev moments mu_n of shape (2 lld + 2, R, d, d) from
     ``psi0`` (kk+1, d, R d), on ``op``'s device; ``plain=True`` runs the
-    plain versions."""
-    kk = psi0.shape[0] - 1
+    plain versions.  ``stages`` ``((n, steps), ...)`` runs the lld + 1
+    H applications, the first the pre-step ``p1 = H~ p0``, on row prefixes
+    of ``op`` as :func:`~.block_lanczos.block_lanczos` does."""
+    p0, p1 = psi0, None
+    mu = []
+    for kk, steps in check_stages(stages, op.kk, psi0.shape[0] - 1, lld + 1):
+        op_n = op.prefix(kk)
 
-    def apply_h(psi):
-        """(H psi - b psi) / a."""
-        hpsi, _ = op(psi, plain=plain)
-        return (hpsi - b * psi[:kk]) / a
+        def apply_h(psi):
+            """(H psi - b psi) / a."""
+            hpsi, _ = op_n(psi, plain=plain)
+            return (hpsi - b * psi[:kk]) / a
 
-    p0 = psi0
-    mu0 = gram_sum(p0[:kk].conj(), p0[:kk])
-    p1 = pad_row(apply_h(p0))
-    mu1 = gram_sum(p0[:kk].conj(), p1[:kk])
-    mu = [mu0, mu1]
-    for _ in range(lld):
-        p2 = 2.0 * apply_h(p1) - p0[:kk]
-        d1 = gram_sum(p1[:kk].conj(), p1[:kk])
-        d2 = gram_sum(p2.conj(), p1[:kk])
-        mu += [2.0 * d1 - mu0, 2.0 * d2 - mu1]
-        p0, p1 = p1, pad_row(p2)
+        p0 = grow_rows(p0, kk + 1)
+        p1 = None if p1 is None else grow_rows(p1, kk + 1)
+        for _ in range(steps):
+            if p1 is None:  # the pre-step
+                mu0 = gram_sum(p0[:kk].conj(), p0[:kk])
+                p1 = pad_row(apply_h(p0))
+                mu1 = gram_sum(p0[:kk].conj(), p1[:kk])
+                mu += [mu0, mu1]
+                continue
+            p2 = 2.0 * apply_h(p1) - p0[:kk]
+            d1 = gram_sum(p1[:kk].conj(), p1[:kk])
+            d2 = gram_sum(p2.conj(), p1[:kk])
+            mu += [2.0 * d1 - mu0, 2.0 * d2 - mu1]
+            p0, p1 = p1, pad_row(p2)
     return torch.stack(mu)
 
 

@@ -105,6 +105,18 @@ def block_spmv(hs: torch.Tensor, iz: torch.Tensor, cols: torch.Tensor,
     return y
 
 
+def prefix_tables(iz: torch.Tensor, cols: torch.Tensor, n: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The row tables of the first ``n`` rows, with every column beyond
+    them sent to the sentinel ``n``: the SpMV of an (n+1)-row ``psi`` whose
+    rows from ``n`` on would be exact zeros (the wavefront's stage,
+    ``rslmtoasa_tpu/ops/wavefront.py`` ``_clamp_cols``)."""
+    if n == cols.shape[0]:
+        return iz, cols
+    c = cols[:n]
+    return iz[:n], torch.where(c < n, c, n).to(cols.dtype).contiguous()
+
+
 def _spmv_contrib(hs, iz, cols, psi) -> Tuple[torch.Tensor, torch.Tensor]:
     """y = H psi and the per-row contributions (kk, C) to Re<psi|y>."""
     kk = cols.shape[0]
@@ -174,7 +186,7 @@ _TABLES: dict = {}
 def packed_table(hs: torch.Tensor, pack=pack_table) -> torch.Tensor:
     """``pack(hs)`` on its device (:func:`pack_table` by default), built
     once and cached while ``hs`` lives unchanged (the recursion passes the
-    same ``hs`` at every step)."""
+    same ``hs`` at every step); ``packed_table.builds`` counts the packs."""
     key = (id(hs), pack)
     hit = _TABLES.get(key)
     if hit is not None:
@@ -182,10 +194,14 @@ def packed_table(hs: torch.Tensor, pack=pack_table) -> torch.Tensor:
         if ref() is hs and ver == hs._version:
             return table
     table = pack(hs)
+    packed_table.builds += 1
     if len(_TABLES) >= 8:
         _TABLES.clear()
     _TABLES[key] = (weakref.ref(hs), hs._version, table)
     return table
+
+
+packed_table.builds = 0  # tables packed (cache misses)
 
 
 def spmv_packed_ref(table: torch.Tensor, iz: torch.Tensor,

@@ -33,21 +33,23 @@ from . import haydock_kernels as hk
 from .haydock_kernels import block_spmv  # noqa: F401  (re-export)
 
 
+def as_table(a, dtype) -> torch.Tensor:
+    """A host array or a tensor (left on its device) as a contiguous
+    ``dtype`` tensor."""
+    if not torch.is_tensor(a):
+        a = np.ascontiguousarray(a)
+    return torch.as_tensor(a, dtype=dtype).contiguous()
+
+
 class HaydockOperator(nn.Module):
     """The ELL Hamiltonian of one spin channel as device buffers, so that
     ``.to(device)`` moves the tables."""
 
     def __init__(self, hs, iz, cols):
         super().__init__()
-        self.register_buffer(
-            "hs", torch.as_tensor(np.ascontiguousarray(hs),
-                                  dtype=torch.complex128))
-        self.register_buffer(
-            "iz", torch.as_tensor(np.ascontiguousarray(iz),
-                                  dtype=torch.int32))
-        self.register_buffer(
-            "cols", torch.as_tensor(np.ascontiguousarray(cols),
-                                    dtype=torch.int32))
+        self.register_buffer("hs", as_table(hs, torch.complex128))
+        self.register_buffer("iz", as_table(iz, torch.int32))
+        self.register_buffer("cols", as_table(cols, torch.int32))
 
     @property
     def kk(self) -> int:
@@ -57,9 +59,10 @@ class HaydockOperator(nn.Module):
         return block_spmv(self.hs, self.iz, self.cols, psi)
 
     def coefficients(self, psi0: torch.Tensor, lld: int,
-                     plain: bool = False, roll: Optional[bool] = None):
+                     plain: bool = False, roll: Optional[bool] = None,
+                     stages=None):
         return lanczos_coefficients(self.hs, self.iz, self.cols, psi0, lld,
-                                    plain=plain, roll=roll)
+                                    plain=plain, roll=roll, stages=stages)
 
 
 def roll_selected(roll: Optional[bool] = None) -> bool:
@@ -88,6 +91,7 @@ def lanczos_coefficients(
     lld: int,
     plain: bool = False,
     roll: Optional[bool] = None,
+    stages: Optional[Sequence[Tuple[int, int]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run ``lld`` Haydock recursion steps for a batch of start vectors.
 
@@ -102,6 +106,12 @@ def lanczos_coefficients(
     device (the reference a card run is checked against).  ``roll``
     picks the SpMV engine (:func:`roll_selected`): K2' on ``True``, K1'
     on ``False``, ``RSLMTO_ROLL`` on ``None``.
+
+    ``stages`` ``((n, steps), ...)`` runs the steps on row prefixes: each
+    stage's SpMVs on the first n rows (:func:`~.haydock_kernels.
+    prefix_tables`), the vectors grown by zero rows between stages (the
+    active-set wavefront, :mod:`.wavefront`); ``psi0`` then holds the first
+    stage's n + 1 rows.  By default one stage of all kk rows.
     """
     if roll_selected(roll):
         spmv_dot = (hk.spmv_dot_pipelined_ref if plain
@@ -110,27 +120,54 @@ def lanczos_coefficients(
         spmv_dot = _folded(hk.spmv_dot_ref if plain else hk.spmv_dot)
     update_norm = hk.update_norm_ref if plain else hk.update_norm
     kk1, b, c = psi0.shape
-    kk = kk1 - 1
     dev = psi0.device
+    stages = check_stages(stages, cols.shape[0], kk1 - 1, lld - 1)
     psi = psi0.clone()
-    pmn = torch.zeros((kk, b, c), dtype=psi0.dtype, device=dev)
+    pmn = torch.zeros((kk1 - 1, b, c), dtype=psi0.dtype, device=dev)
     summ = torch.ones(c, dtype=torch.float64, device=dev)
     a = torch.zeros((lld, c), dtype=torch.float64, device=dev)
     b2 = torch.zeros((lld, c), dtype=torch.float64, device=dev)
-    psi_rows = torch.view_as_real(psi)[:kk]  # (kk, b, c, 2)
-    for ll in range(lld - 1):
-        v, a_ll = spmv_dot(hs, iz, cols, psi)
-        a[ll] = a_ll
-        b2[ll] = summ
-        pmn, nrm = update_norm(a_ll, psi, v, pmn)
-        summ = nrm.sum(0)
-        s = torch.sqrt(summ)
-        pmn_new = psi[:kk] * (-s)
-        # psi' = pmn' / s, per real component; row kk stays zero
-        torch.div(torch.view_as_real(pmn), s[:, None], out=psi_rows)
-        pmn = pmn_new
+    ll = 0
+    for kk, steps in stages:
+        iz_n, cols_n = hk.prefix_tables(iz, cols, kk)
+        psi, pmn = grow_rows(psi, kk + 1), grow_rows(pmn, kk)
+        psi_rows = torch.view_as_real(psi)[:kk]  # (kk, b, c, 2)
+        for _ in range(steps):
+            v, a_ll = spmv_dot(hs, iz_n, cols_n, psi)
+            a[ll] = a_ll
+            b2[ll] = summ
+            pmn, nrm = update_norm(a_ll, psi, v, pmn)
+            summ = nrm.sum(0)
+            s = torch.sqrt(summ)
+            pmn_new = psi[:kk] * (-s)
+            # psi' = pmn' / s, per real component; row kk stays zero
+            torch.div(torch.view_as_real(pmn), s[:, None], out=psi_rows)
+            pmn = pmn_new
+            ll += 1
     b2[lld - 1] = summ
     return a, b2
+
+
+def grow_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` with zero rows appended up to ``n`` rows."""
+    if x.shape[0] == n:
+        return x
+    return torch.cat([x, x.new_zeros((n - x.shape[0],) + x.shape[1:])])
+
+
+def check_stages(stages, kk: int, n0: int, nsteps: int):
+    """``stages`` ((n, steps), ...) of a recursion of ``nsteps`` steps on
+    ``kk`` rows whose start vectors hold ``n0`` rows (one stage of all of
+    them when None): growing prefixes up to kk, the first of n0 rows."""
+    if stages is None:
+        stages = ((kk, nsteps),)
+    ns = [n for n, _ in stages]
+    if (ns[0] != n0 or ns != sorted(ns) or ns[-1] > kk
+            or sum(s for _, s in stages) != nsteps):
+        raise ValueError(f"stages {list(stages)}: want growing prefixes "
+                         f"from the start vectors' {n0} rows up to kk={kk} "
+                         f"and {nsteps} steps in all")
+    return stages
 
 
 def scalar_start_vectors(kk: int, atom_indices: Sequence[int],

@@ -1,14 +1,20 @@
-"""Dispatch of the block, Chebyshev and Kubo recursions on one device.
+"""Dispatch of the scalar, block, Chebyshev and Kubo recursions on one
+device.
 
-Port of the CPU route of ``rslmtoasa_tpu/parallel/dispatch.py``
-(``block_lanczos_auto`` :295, ``chebyshev_moments_auto`` :480): when the
-problem decouples into collinear spin sectors (``nsp`` 1, no spin-orbit
-coupling) the recursion runs once per 9-wide sector, otherwise once at the
-full width 18.  Either way it runs on ``device`` through K4.  The Kubo
-moments (:func:`kubo_moments_auto`) always run at width 18, as the JAX
-package's ``models/conductivity.py`` runs them, in groups of start blocks
-that fit the device's memory.  The mesh, the active-set wavefront and the
-TPU engines are not ported (ROADMAP queue 1, item 7).
+Port of the single-device route of ``rslmtoasa_tpu/parallel/dispatch.py``
+(``lanczos_auto`` :687, ``block_lanczos_auto`` :295,
+``chebyshev_moments_auto`` :480): when the block problem decouples into
+collinear spin sectors (``nsp`` 1, no spin-orbit coupling) the recursion
+runs once per 9-wide sector, otherwise once at the full width 18.  Each
+recursion (each sector for itself) runs through the active-set wavefront
+(:mod:`..ops.wavefront`) where :func:`_wavefront_plan` engages, as the JAX
+package's rule does: above ``RSLMTO_WAVEFRONT_KK`` atoms (default 30 000)
+and where the plan's work is under 0.7 of the full width's; else at the
+full width.  Either way it runs on ``device``, through K1'/K3' (scalar) or
+K4.  The Kubo moments (:func:`kubo_moments_auto`) always run at width 18
+over the whole cluster, as the JAX package's ``models/conductivity.py``
+runs them, in groups of start blocks that fit the device's memory.  The
+mesh and the TPU engines are not ported (ROADMAP queue 1, item 7).
 
 The tables come as host arrays (complex128, the JAX package's layouts),
 ``psi0`` as a tensor in the port's layout ``(kk+1, d, R d)``; results come
@@ -20,13 +26,63 @@ rows in front; the spin sectors cut them like any table.
 
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import numpy as np
 import torch
 
+from ..ops import wavefront
 from ..ops.block_lanczos import BlockOperator, block_lanczos
 from ..ops.chebyshev import chebyshev_moments
 from ..ops.kubo import VelocityOperator, kubo_moments, plan
+from ..ops.lanczos import HaydockOperator
 from ..utils.logger import g_logger
+
+MAX_STARTS = 4096  # start rows beyond which the wavefront is not planned
+
+
+def _wavefront_plan(cols, psi0: torch.Tensor, lld: int, hoh: bool,
+                    kind: str = "lanczos"
+                    ) -> Optional[wavefront.WavefrontPlan]:
+    """Active-set plan for large clusters (create_ll_map analogue,
+    recursion.f90:3277-3303), or ``None`` where the full width is taken:
+    below ``RSLMTO_WAVEFRONT_KK`` atoms (default 30 000), with no start
+    row or more than :data:`MAX_STARTS` (the nonzero rows of ``psi0``), or
+    where the plan's work is not under 0.7 of the full width's (the JAX
+    package's ``_wavefront_plan``, ``parallel/dispatch.py`` :131).  With
+    ``hoh`` H reaches two hops per application; ``kind="chebyshev"`` plans
+    the moments' pre-step too."""
+    kk = psi0.shape[0] - 1
+    if kk < int(os.environ.get("RSLMTO_WAVEFRONT_KK", "30000")):
+        return None
+    starts = (psi0[:kk] != 0).flatten(1).any(1).nonzero().squeeze(1)
+    if starts.numel() == 0 or starts.numel() > MAX_STARTS:
+        return None
+    mk = (wavefront.make_plan_chebyshev if kind == "chebyshev"
+          else wavefront.make_plan)
+    p = mk(np.asarray(cols), kk, starts.cpu().numpy(), lld,
+           hops_per_step=2 if hoh else 1)
+    if p.work >= 0.7 * p.dense_work:
+        return None
+    g_logger.debug(f"wavefront: stages {p.stages}, "
+                   f"work {p.work / p.dense_work:.3f} of the full width")
+    return p
+
+
+def lanczos_auto(hs, iz, cols, psi0: torch.Tensor, lld: int, *,
+                 plain: bool = False, roll: Optional[bool] = None):
+    """Scalar Haydock recursion of the C chains of ``psi0`` (kk+1, 9, C)
+    on its device, through the wavefront where :func:`_wavefront_plan`
+    engages (the JAX package's ``lanczos_auto`` :687 on one device).
+    Returns host (a, b2) of shape (lld, C)."""
+    p = _wavefront_plan(cols, psi0, lld, False)
+    if p is not None:
+        return wavefront.lanczos_coefficients_wavefront(
+            hs, iz, cols, psi0, lld, p, plain=plain, roll=roll)
+    op = HaydockOperator(hs, iz, cols).to(psi0.device)
+    a, b2 = op.coefficients(psi0, lld, plain=plain, roll=roll)
+    return a.cpu().numpy(), b2.cpu().numpy()
 
 
 def _spin_diag(m) -> bool:
@@ -85,7 +141,8 @@ def block_lanczos_auto(hs, lsham, iz, cols, psi0: torch.Tensor, lld: int, *,
                        hoh: bool = False, hso=None, enim=None,
                        iz_onsite=None, nmax: int = 0, plain: bool = False):
     """Block recursion of the R start blocks of ``psi0`` on its device, per
-    spin sector where the problem decouples.  Returns host (a_b, b2_b) of
+    spin sector where the problem decouples, each through the wavefront
+    where :func:`_wavefront_plan` engages.  Returns host (a_b, b2_b) of
     shape (lld, R, 18, 18) (or d wide for a d-wide ``psi0``)."""
     sec = _spin_sectors(hs, lsham, hso, enim, psi0)
     if sec is not None:
@@ -95,6 +152,11 @@ def block_lanczos_auto(hs, lsham, iz, cols, psi0: torch.Tensor, lld: int, *,
                 for (h_, l_, o_, e_, p_) in sec]
         return (_spin_assemble(outs[0][0], outs[1][0]),
                 _spin_assemble(outs[0][1], outs[1][1]))
+    p = _wavefront_plan(cols, psi0, lld, hoh)
+    if p is not None:
+        return wavefront.block_lanczos_wavefront(
+            hs, lsham, iz, cols, psi0, lld, p, hoh=hoh, hso=hso, enim=enim,
+            iz_onsite=iz_onsite, nmax=nmax, plain=plain)
     op = BlockOperator(hs, iz, cols, lsham, iz_onsite=iz_onsite, hoh=hoh,
                        hso=hso, enim=enim, nmax=nmax).to(psi0.device)
     a_b, b2_b = block_lanczos(op, psi0, lld, plain=plain)
@@ -116,7 +178,8 @@ def chebyshev_moments_auto(hs, lsham, iz, cols, psi0: torch.Tensor,
                            guard: bool = True,
                            plain: bool = False) -> np.ndarray:
     """Chebyshev block moments of the start blocks of ``psi0`` on its
-    device, per spin sector where the problem decouples.  Returns host mu
+    device, per spin sector where the problem decouples, each through the
+    wavefront where :func:`_wavefront_plan` engages.  Returns host mu
     (2 lld + 2, R, 18, 18).  The divergence guard sees the assembled
     18 x 18 blocks, as the reference sums the full block."""
     sec = _spin_sectors(hs, lsham, hso, enim, psi0)
@@ -127,6 +190,11 @@ def chebyshev_moments_auto(hs, lsham, iz, cols, psi0: torch.Tensor,
                                        guard=False, plain=plain)
                 for (h_, l_, o_, e_, p_) in sec]
         mu = _spin_assemble(outs[0], outs[1])
+    elif (p := _wavefront_plan(cols, psi0, lld, hoh,
+                               "chebyshev")) is not None:
+        mu = wavefront.chebyshev_moments_wavefront(
+            hs, lsham, iz, cols, psi0, lld, a, b, p, hoh=hoh, hso=hso,
+            enim=enim, iz_onsite=iz_onsite, nmax=nmax, plain=plain)
     else:
         op = BlockOperator(hs, iz, cols, lsham, iz_onsite=iz_onsite,
                            hoh=hoh, hso=hso, enim=enim,

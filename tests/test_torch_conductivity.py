@@ -375,9 +375,9 @@ def test_cli_matches_jax_cli(tmp_path, capsys, units, hoh):
         _assert_printed_close(dirs["jax"] / fname, dirs["torch"] / fname)
 
 
-def test_refusals(tmp_path):
-    """The impurity cluster raises, naming its ROADMAP entry, and so do
-    the geometry exports beside ``conductivity_p2rs`` (item 14)."""
+def test_refusals(tmp_path, monkeypatch):
+    """The impurity cluster raises, naming its ROADMAP entry; the geometry
+    exports are written beside ``conductivity_p2rs`` before it runs."""
     cfg = presets.synthetic_embedded_config("I", 12.0, 8, 2)
     isys = presets.build_synthetic_embedded(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 3"):
@@ -385,5 +385,13 @@ def test_refusals(tmp_path):
     psys = presets.build_synthetic_bcc(rc=RC, lld=4, nsp=2, device="cpu")
     psys.cfg.calculation.post_processing = "conductivity_p2rs"
     psys.cfg.lattice.write_artifacts = True
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.run_calculation(psys.cfg, str(tmp_path), device="cpu")
+    presets.write_input(psys, str(tmp_path))  # the element file X.nml
+    psys.cfg.atoms.database = str(tmp_path)
+    ran = []
+    monkeypatch.setattr(cli, "run_system", lambda sys_, wd: ran.append(
+        sys_.cfg.calculation.post_processing))
+    out = tmp_path / "out"
+    assert cli.run_calculation(psys.cfg, str(out), device="cpu") == 0
+    assert {"clust", "map", "str.out", "sbar", "view.sbar"} <= set(
+        os.listdir(out))
+    assert ran == ["conductivity_p2rs"]

@@ -1,7 +1,8 @@
 """The CUDA kernels (Haydock K1'-K3', block step K4) against their plain
 versions, and the Green functions, the exchange pair recursion, the Kubo
 moments and the orbital moment's trace against the same torch code on the
-CPU, on the card.
+CPU, and the active-set wavefront through the kernels against its plain
+version and the full-width route, on the card.
 
 Marked ``gpu``: without a CUDA card every test skips (the check is made
 in the fixture, never at import).  On a machine with one, run
@@ -33,7 +34,7 @@ from rslmtoasa_tpu_torch.models.presets import (
 )
 from rslmtoasa_tpu_torch.ops import block_kernels as bk
 from rslmtoasa_tpu_torch.ops import haydock_kernels as hk
-from rslmtoasa_tpu_torch.ops import kubo
+from rslmtoasa_tpu_torch.ops import kubo, wavefront
 from rslmtoasa_tpu_torch.ops.block_lanczos import (
     BlockOperator,
     block_lanczos,
@@ -579,3 +580,132 @@ def test_orbital_moment_on_card_matches_cpu(card, tmp_path):
     (mu, lz), (mu0, lz0) = out
     assert (mu - mu0).abs().max() <= BAR * mu0.abs().max()
     assert np.abs(lz - lz0).max() <= BAR * np.abs(lz0).max()
+
+
+# ----------------------------------------------------------------------
+# the active-set wavefront through the kernels
+WF = dict(rc=45.0, ndim=100000, lld=8)  # kk = 2 636
+
+
+@pytest.fixture(scope="module")
+def wavefront_system(card):
+    """The wavefront's CPU test fixture with the HoH tables (``nsp=2``,
+    spin-orbit coupling), built on the CPU."""
+    return build_synthetic_bcc(nsp=2, hoh=True, device="cpu", **WF)
+
+
+def _packs(run):
+    """``run()`` with K4's table cache emptied first; returns its result
+    and the number of tables it packed."""
+    hk._TABLES.clear()
+    n = hk.packed_table.builds
+    out = run()
+    return out, hk.packed_table.builds - n
+
+
+@pytest.mark.parametrize("roll", [False, True])
+def test_scalar_wavefront_through_the_kernels(wavefront_system, card, roll):
+    """K1' (K2' with ``roll``) and K3' on the plan's prefixes against the
+    same wavefront's plain version and the full-width kernel route: 1e-11;
+    one launch of each per step."""
+    hb = wavefront_system.ham
+    kk, lld = wavefront_system.cluster.kk, WF["lld"]
+    hs = np.ascontiguousarray(hb.ee[:, :, :9, :9])
+    psi0 = scalar_start_vectors(kk, [0, 3], card)
+    p = wavefront.make_plan(hb.cols, kk, [0, 3], lld)
+    assert len(p.stages) > 2 and p.stages[-1][0] == kk
+    spmv = hk.spmv_dot_pipelined if roll else hk.spmv_dot
+    n, m = spmv.launches, hk.update_norm.launches
+    a, b2 = wavefront.lanczos_coefficients_wavefront(
+        hs, hb.iz, hb.cols, psi0, lld, p, roll=roll)
+    assert spmv.launches - n == hk.update_norm.launches - m == lld - 1
+    a0, b20 = wavefront.lanczos_coefficients_wavefront(
+        hs, hb.iz, hb.cols, psi0, lld, p, roll=roll, plain=True)
+    op = HaydockOperator(hs, hb.iz, hb.cols).to(card)
+    ad, b2d = (t.cpu().numpy() for t in op.coefficients(psi0, lld, roll=roll))
+    for got, want in ((a, a0), (b2, b20), (a, ad), (b2, b2d)):
+        assert np.abs(got - want).max() <= 1e-11
+
+
+@pytest.mark.parametrize("case", ["block", "block-hoh", "chebyshev"])
+def test_block_wavefront_through_k4(wavefront_system, card, case):
+    """K4 on the plan's prefixes (d = 18, spin-orbit coupling; HoH on a
+    two-hop plan) against the same wavefront's plain version and the
+    full-width K4 route: 1e-11; K4 launched once per H application (twice
+    with HoH) and each table packed once for all stages."""
+    hb = wavefront_system.ham
+    kk, lld = wavefront_system.cluster.kk, WF["lld"]
+    hoh = case == "block-hoh"
+    lld = 3 if hoh else lld
+    kw = dict(hoh=True, hso=hb.eeo, enim=hb.enim) if hoh else {}
+    tabs = hb.ee, hb.lsham, hb.iz, hb.cols
+    psi0 = block_start_vectors(kk, [0], card)
+    per = 2 if hoh else 1
+    op = BlockOperator(hb.ee, hb.iz, hb.cols, hb.lsham, **kw).to(card)
+    if case == "chebyshev":
+        p = wavefront.make_plan_chebyshev(hb.cols, kk, [0], lld)
+        ab = (2.5 / 1.7, -0.25)
+
+        def run(plain=False):
+            return (wavefront.chebyshev_moments_wavefront(
+                *tabs, psi0, lld, *ab, p, plain=plain, **kw),)
+        dense = (chebyshev_moments(op, psi0, lld, *ab).cpu().numpy(),)
+        steps = lld + 1
+    else:
+        p = wavefront.make_plan(hb.cols, kk, [0], lld,
+                                hops_per_step=2 if hoh else 1)
+
+        def run(plain=False):
+            return wavefront.block_lanczos_wavefront(
+                *tabs, psi0, lld, p, plain=plain, **kw)
+        dense = tuple(t.cpu().numpy() for t in block_lanczos(op, psi0, lld))
+        steps = lld - 1
+    assert p.work < 0.7 * p.dense_work and len(p.stages) > 1
+    assert sum(s for _, s in p.stages) == steps
+    n = bk.block_step.launches
+    got, packs = _packs(run)
+    assert bk.block_step.launches - n == per * steps
+    assert packs == 1 + per  # hs (and -eeo with HoH), the onsite table
+    want = run(plain=True)
+    for g, w, d in zip(got, want, dense):
+        assert np.abs(g - w).max() <= 1e-11
+        assert np.abs(g - d).max() <= 1e-11
+
+
+@pytest.mark.parametrize("hoh", [False, True])
+def test_impurity_wavefront_through_k4(card, hoh, monkeypatch):
+    """The three-impurity preset at ``rc=220`` (kk = 27 316), lld 12, with
+    the threshold lowered: its block recursion runs the wavefront, the
+    local zone's route reaching the last per-atom row of the permuted
+    table (the permutation reorders the zone's rows), against the same
+    with ``plain=True`` and the full-width K4 route: 1e-11."""
+    sys_ = build_synthetic_impurity(rc=220.0, nsp=2, hoh=hoh, lld=12,
+                                    device="cpu")
+    sys_.device = card
+    calls = []
+    make = wavefront._block_operator
+
+    def spy(*a, **k):
+        calls.append(make(*a, **k))
+        return calls[-1]
+
+    monkeypatch.setattr(wavefront, "_block_operator", spy)
+    monkeypatch.setenv("RSLMTO_WAVEFRONT_KK", "20000")
+    n = bk.block_step.launches
+    got, packs = _packs(sys_.run_block)
+    assert bk.block_step.launches - n == (2 if hoh else 1) * 11
+    (op,) = calls
+    zone = op.zone()
+    nmax = sys_.cluster.nmax
+    assert op.nmax >= nmax and zone is not None and zone.nl >= op.nmax
+    assert sorted(op.iz[:op.nmax].tolist())[:nmax] == list(range(nmax))
+    assert packs <= 2 * (2 if hoh else 1) + 2  # both routes, once each
+    sys_.plain = True
+    want = sys_.run_block()
+    sys_.plain = False
+    monkeypatch.setenv("RSLMTO_WAVEFRONT_KK", "999999999")
+    dense = sys_.run_block()
+    assert len(calls) == 2
+    for g, w, d in zip(got, want, dense):
+        assert np.abs(g - w).max() <= 1e-11
+        assert np.abs(g - d).max() <= 1e-11

@@ -32,9 +32,9 @@ and the nn) and the bcc(001) slab of ``tests/test_torch_embedded.py``
   package's Jij/Dij/Aij;
 * both command-line drivers on one exchange input, pairs and trio routes;
 * on a 300-channel mesh (E = 1e-16 on it) the port's onsite pair completes
-  where the JAX package raises (ROADMAP queue 3); the impurity cluster and
-  the geometry exports (``write_artifacts``, also beside ``exchange_p2rs``,
-  ``conductivity_p2rs`` and ``orbital_modern``) are refused.
+  where the JAX package raises (ROADMAP queue 3); the impurity cluster is
+  refused, and the geometry exports (``write_artifacts``) are written beside
+  ``exchange_p2rs``, ``conductivity_p2rs`` and ``orbital_modern``.
 """
 
 import copy
@@ -480,10 +480,10 @@ def test_zero_chains_never_reach_the_green_function(tmp_path):
     assert np.isfinite(res[0]["jij"]) and res[0]["jij"] > 1.0
 
 
-def test_refusals(tmp_path):
-    """The impurity cluster and the geometry exports still to port raise,
-    naming their ROADMAP entry, whatever the branch; pairs outside the
-    cluster raise."""
+def test_refusals(tmp_path, monkeypatch):
+    """The impurity cluster raises, naming its ROADMAP entry; pairs
+    outside the cluster raise.  The geometry exports are written beside
+    every branch before it runs."""
     cfg = presets.synthetic_embedded_config("I", 12.0, LLD, 2)
     isys = presets.build_synthetic_embedded(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 3"):
@@ -493,9 +493,16 @@ def test_refusals(tmp_path):
         with pytest.raises(ValueError, match="pairs"):
             ExchangeCalculation(psys, np.array(bad), str(tmp_path))
     psys.cfg.lattice.write_artifacts = True
-    for post, item in (("exchange_p2rs", "item 14"),
-                       ("conductivity_p2rs", "item 14"),
-                       ("orbital_modern", "item 14")):
+    presets.write_input(psys, str(tmp_path))  # the element file X.nml
+    psys.cfg.atoms.database = str(tmp_path)
+    ran = []
+    monkeypatch.setattr(cli, "run_system", lambda sys_, wd: ran.append(
+        (sys_.cluster.kk, sys_.cfg.calculation.post_processing, wd)))
+    posts = ("exchange_p2rs", "conductivity_p2rs", "orbital_modern")
+    for post in posts:
         psys.cfg.calculation.post_processing = post
-        with pytest.raises(NotImplementedError, match=item):
-            cli.run_calculation(psys.cfg, str(tmp_path), device="cpu")
+        out = tmp_path / post
+        assert cli.run_calculation(psys.cfg, str(out), device="cpu") == 0
+        assert {"clust", "map", "str.out", "sbar", "view.sbar"} <= set(
+            os.listdir(out))
+    assert ran == [(psys.cluster.kk, p, str(tmp_path / p)) for p in posts]

@@ -32,7 +32,12 @@ assert {"rslmtoasa_tpu_torch.geometry.surface",
         "rslmtoasa_tpu_torch.ops.kubo",
         "rslmtoasa_tpu_torch.models.paoflow",
         "rslmtoasa_tpu_torch.models.orbital",
-        "rslmtoasa_tpu_torch.models.spin_dynamics"} <= set(names)
+        "rslmtoasa_tpu_torch.models.spin_dynamics",
+        "rslmtoasa_tpu_torch.ops.wavefront",
+        "rslmtoasa_tpu_torch.physics.atomsphere",
+        "rslmtoasa_tpu_torch.physics.radial",
+        "rslmtoasa_tpu_torch.physics.xc_lda",
+        "rslmtoasa_tpu_torch.utils.artifacts"} <= set(names)
 
 from rslmtoasa_tpu_torch.ops.lanczos import (
     HaydockOperator, scalar_start_vectors)
