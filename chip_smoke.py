@@ -148,6 +148,23 @@ code is then non-zero):
    iteration against the full width's at the strict bars; at box 10 one
    block SCF iteration at ``txc=8`` with ``hyperfine`` (the Python
    atomic-sphere solver), the card against the CPU.
+13. ranks: the multi-rank path (``parallel/mesh.py``, ``ops/rowslab.py``,
+   ``parallel/launch.py``) on the one card.  K1', K3' and K4 (d = 18 and
+   9, both HoH launches) on the box-60 tables cut into two row slabs (own
+   rows, then the halo rows their columns reach) against their plain
+   versions (1e-12 of scale), timed per launch beside their bounds and
+   ``torch.sparse.mm`` on the same slab; two ranks sharing the card over
+   gloo: the box-60 block, HoH, Chebyshev and scalar recursions from atom
+   0 on row slabs (halo exchanges, launches, each rank's wall and peak
+   memory) against the single rank's full-width kernel route (1e-11), the
+   box-30 exchange run (phase 9's six pairs, R = 21) chain-sharded against
+   one rank (1e-10 mRy), and the 2-iteration box-30 block SCF through the
+   CLI (``RSLMTO_ROWSHARD_BYTES`` sending its recursion to row slabs)
+   against one rank's CLI on the written files (1e-6); one NCCL rank
+   running the chain-sharded block recursion (the single rank's bits); the
+   dry run (``rslmtoasa_tpu_torch.dryrun``) at two ranks on the card.
+   Every time there measures the plumbing of two ranks on one card, not
+   scaling.
 
 All kernel sources build at once in phase 1, one nvcc each.
 
@@ -204,12 +221,24 @@ SOURCES = {"spmv_dot": "rslmtoasa_tpu_torch/csrc/haydock.cu",
            **{n: "rslmtoasa_tpu_torch/csrc/" + (
                "block_step.cu" if n.startswith("block") else "haydock.cu")
               for n in WAVEFRONT_FORMS}}
+# phase 13: the kernels on row-slab tables, by the TPU op of the JAX
+# package's row-sharded recursions each replaces: the ring SpMV and the
+# update of parallel/mesh.py lanczos_rowsharded, and the x-slab conv
+# engines of ops/msconv_shard.py (block, and its HoH form)
+SLAB_FORMS = {
+    "spmv_dot[slab]": "rslmtoasa_tpu/parallel/mesh.py:180",
+    "update_norm[slab]": "rslmtoasa_tpu/parallel/mesh.py:258",
+    "block_step[slab]": "rslmtoasa_tpu/ops/msconv_shard.py:414",
+    "block_step[slab-hoh]": "rslmtoasa_tpu/ops/msconv_shard.py:414"}
+SOURCES.update({n: "rslmtoasa_tpu_torch/csrc/" + (
+    "block_step.cu" if n.startswith("block") else "haydock.cu")
+    for n in SLAB_FORMS})
 REPLACES = {"spmv_dot": "rslmtoasa_tpu/ops/pallas_conv.py:185",
             "spmv_dot_pipelined": "rslmtoasa_tpu/ops/pallas_conv.py:352",
             "update_norm": "rslmtoasa_tpu/ops/pallas_conv.py:551",
             **{n: "rslmtoasa_tpu/ops/block_lanczos.py:27"
                for n in ("block_step",) + K4_FORMS}, **KUBO_FORMS,
-            **WAVEFRONT_FORMS}
+            **WAVEFRONT_FORMS, **SLAB_FORMS}
 # phase 8: the slab and the impurity at full width, and at a small size
 # for the card against the CPU
 EMBEDDED = {"surface": dict(rc=340.0), "impurity": dict(rc=220.0)}
@@ -277,6 +306,11 @@ TORQUE_BAR = 1e-8
 LARGE_BOX = 60
 XC_SMALL_BOX = 10
 XC_TXC = 8
+# phase 13: two ranks on the one card; the CLI's block SCF at box 30 takes
+# the row slabs under this budget (one chain's state, 6 kk d^2 16 B at
+# d = 18, is 0.84 GB: over it, and its share on two ranks under it)
+RANKS = 2
+CLI_ROWSHARD_BYTES = 600_000_000
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): FP64 on the tensor cores,
 # FP64 on the vector units, HBM3 bandwidth
 FP64_TENSOR_FLOPS = 67e12
@@ -1910,9 +1944,375 @@ def large_cluster_phase(dev, records, every, box=LARGE_BOX,
     else:
         check(not misses, f"txc={XC_TXC} hyperfine card vs CPU: {diffs}")
     check(diffs["hyper"] <= 1e-6, f"hyperfine fields: {diffs['hyper']}")
-    del big, small
+    del small
     torch.cuda.empty_cache()
     say(12, f"phase 12 in {time.perf_counter() - t0:.1f} s")
+    return big
+
+
+def box_input(sys_, where, box, nstep=NSTEP):
+    """``input.nml`` of a block SCF of the bcc preset ``sys_`` built at
+    ``box`` (the full box x box x box cell grid, ``&lattice pbc``) with
+    ``nstep`` iterations, and its element file, into ``where``."""
+    from rslmtoasa_tpu_torch.models.scf import SelfConsistency
+    from rslmtoasa_tpu_torch.utils.namelist import write_namelist
+
+    cfg = sys_.cfg
+    lat, en, ctl = cfg.lattice, cfg.energy, cfg.control
+    text = "".join([
+        write_namelist("calculation", {
+            "pre_processing": cfg.calculation.pre_processing}),
+        write_namelist("control", {
+            "calctype": ctl.calctype, "nsp": ctl.nsp, "lld": ctl.lld,
+            "recur": "block"}),
+        write_namelist("lattice", {
+            "rc": lat.rc, "ndim": lat.ndim, "alat": lat.alat,
+            "wav": lat.wav, "crystal_sym": lat.crystal_sym,
+            "ntype": lat.ntype, "r2": lat.r2, "ct": [lat.ct[0]],
+            "pbc": True, "n1": box, "n2": box, "n3": box}),
+        write_namelist("atoms", {"database": "", "label": cfg.atoms.labels}),
+        write_namelist("self", {"nstep": nstep}),
+        write_namelist("energy", {
+            "channels_ldos": en.channels_ldos, "energy_min": en.energy_min,
+            "energy_max": en.energy_max, "fermi": en.fermi}),
+        write_namelist("mix", {"beta": cfg.mix.beta,
+                               "mixtype": cfg.mix.mixtype}),
+    ])
+    path = os.path.join(where, "input.nml")
+    with open(path, "w") as fh:
+        fh.write(text)
+    SelfConsistency(sys_, workdir=where).save_checkpoints()
+    for at in sys_.atoms:
+        os.replace(os.path.join(where, f"{at.element.symbol}_out.nml"),
+                   os.path.join(where, f"{at.label}.nml"))
+    return path
+
+
+def per_rank_text(ranks, what=("wall", "peak")):
+    """'rank 0 1.234 s 2.34 GiB, rank 1 ...' of ``stages.per_rank``."""
+    return ", ".join(
+        f"rank {r} {v[0]:.3f} s {v[1] / 2**30:.2f} GiB"
+        + ("" if len(v) < 4 else f" ({int(v[2])} rows + {int(v[3])} halo)")
+        for r, v in enumerate(ranks))
+
+
+def multi_rank_phase(dev, records, big, ranks_device="cuda",
+                     small_box=PRESET["box"], lld=PRESET["lld"]):
+    """Phase 13: the port's multi-rank path on the one card (the module
+    docstring's item 13).  ``big`` is phase 12's box-60 system; the
+    exchange and CLI runs build the preset at ``small_box``."""
+    from types import SimpleNamespace
+
+    from rslmtoasa_tpu_torch import cli, dryrun
+    from rslmtoasa_tpu_torch.convert import system_to_numpy
+    from rslmtoasa_tpu_torch.models.presets import (
+        build_synthetic_bcc,
+        synthetic_exchange,
+    )
+    from rslmtoasa_tpu_torch.ops import block_kernels as bk
+    from rslmtoasa_tpu_torch.ops import haydock_kernels as hk
+    from rslmtoasa_tpu_torch.ops import rowslab
+    from rslmtoasa_tpu_torch.ops.block_lanczos import (
+        BlockOperator,
+        block_lanczos,
+        block_start_vectors,
+    )
+    from rslmtoasa_tpu_torch.ops.chebyshev import chebyshev_moments
+    from rslmtoasa_tpu_torch.ops.lanczos import (
+        HaydockOperator,
+        scalar_start_vectors,
+    )
+    from rslmtoasa_tpu_torch.parallel import launch, stages
+
+    t0 = time.perf_counter()
+    hb, kk = big.ham, big.cluster.kk
+    hs9 = np.ascontiguousarray(hb.ee[:, :, :9, :9])
+    hs9_t = torch.as_tensor(hs9, device=dev)
+    gen = torch.Generator(device=dev)
+
+    def chains(n, d, c, seed):
+        gen.manual_seed(seed)
+        x = torch.randn((n + 1, d, c, 2), dtype=torch.float64, device=dev,
+                        generator=gen)
+        x[n] = 0.0
+        return torch.view_as_complex(x)
+
+    # the kernels on the two slabs' tables ------------------------------
+    forms = {f: dict(err=0.0) for f in SLAB_FORMS}
+    for rank in range(RANKS):
+        slab = rowslab.Slab(SimpleNamespace(rank=rank, world=RANKS),
+                            hb.cols, dev)
+        n, nx = slab.n_own, slab.nx
+        iz_l = slab.rows(hb.iz)
+        nb = int((slab.cols < nx).sum())
+        x = chains(nx, 9, 9, 100 + rank)
+        v = chains(n, 9, 9, 110 + rank)[:n].contiguous()
+        pmn = chains(n, 9, 9, 120 + rank)[:n].contiguous()
+        a = torch.linspace(-1.0, 1.0, 9, dtype=torch.float64, device=dev)
+        y, ap = hk.spmv_dot(hs9_t, iz_l, slab.cols, x)
+        y0, ap0 = hk.spmv_dot_ref(hs9_t, iz_l, slab.cols, x)
+        out, nrm = hk.update_norm(a, x, v, pmn.clone())
+        out0, nrm0 = hk.update_norm_ref(a, x, v, pmn)
+        ops = {"block_step[slab]": rowslab.slab_operator(
+                   slab, hb.ee, hb.lsham, hb.iz),
+               "block_step[slab-hoh]": rowslab.slab_operator(
+                   slab, hb.ee, hb.lsham, hb.iz, hoh=True, hso=hb.eeo,
+                   enim=hb.enim),
+               "d=9": rowslab.slab_operator(
+                   slab, hb.ee[..., :9, :9], hb.lsham[..., :9, :9], hb.iz)}
+        xb = {18: chains(nx, 18, 18, 130 + rank),
+              9: chains(nx, 9, 9, 140 + rank)}
+        hx = slab.extend(ops["block_step[slab-hoh]"].hs_apply(xb[18])[:n])
+        hx[n:nx] = chains(nx - n, 18, 18, 150 + rank)[:nx - n]
+        k4 = {}
+        for f, op in ops.items():
+            xf = xb[op.hs.shape[-1]]
+            hp = hx if op.hoh else None
+            k4[f] = (op(xf, gram=True, hpsi=hp),
+                     op(xf, gram=True, plain=True, hpsi=hp))
+        first = (ops["block_step[slab-hoh]"].hs_apply(xb[18]),
+                 ops["block_step[slab-hoh]"].hs_apply(xb[18], plain=True))
+        torch.cuda.synchronize()
+        pairs = {"spmv_dot[slab]": ((y, y0), (ap, ap0)),
+                 "update_norm[slab]": ((out, out0), (nrm, nrm0)),
+                 "block_step[slab]": tuple(zip(*k4["block_step[slab]"])),
+                 "block_step[slab-hoh]": tuple(zip(
+                     *k4["block_step[slab-hoh]"])) + (first,),
+                 "d=9": tuple(zip(*k4["d=9"]))}
+        for f, prs in pairs.items():
+            for g, w in prs:
+                e, sc = rel_err(g, w)
+                check(e <= 1e-12 * sc, f"{f} rank {rank}: {e} > 1e-12 * "
+                      f"{sc}")
+                if f in forms:
+                    forms[f]["err"] = max(forms[f]["err"], e)
+        if rank:
+            continue
+        # timed on slab 0, one launch (two with HoH) per call
+        op18, oph = ops["block_step[slab]"], ops["block_step[slab-hoh]"]
+        buf = pmn.clone()
+        times = {
+            "spmv_dot[slab]": in_turns(
+                lambda: hk.spmv_dot_ref(hs9_t, iz_l, slab.cols, x),
+                lambda: hk.spmv_dot(hs9_t, iz_l, slab.cols, x), 5),
+            "update_norm[slab]": in_turns(
+                lambda: hk.update_norm_ref(a, x, v, buf),
+                lambda: hk.update_norm(a, x, v, buf), 5),
+            "block_step[slab]": in_turns(
+                lambda: op18(xb[18], gram=True, plain=True),
+                lambda: op18(xb[18], gram=True), 5),
+            "block_step[slab-hoh]": in_turns(
+                lambda: (oph.hs_apply(xb[18], plain=True),
+                         oph(xb[18], gram=True, plain=True, hpsi=hx)),
+                lambda: (oph.hs_apply(xb[18]),
+                         oph(xb[18], gram=True, hpsi=hx)), 5)}
+        flops, moved = k4_work(op18, xb[18], nb, bk.nrowblk(n, 18))
+        # both HoH launches: k4_work counts the eeo SpMV and the add
+        fh, mh = k4_work(oph, xb[18], nb, bk.nrowblk(n, 18))
+        work = {"spmv_dot[slab]": (8 * 81 * nb * 9,
+                                   nbytes(hs9_t, iz_l, slab.cols, x, y0,
+                                          ap0)),
+                "update_norm[slab]": (10 * n * 9 * 9,
+                                      nbytes(a, x[:n], v, pmn, out0, nrm0)),
+                "block_step[slab]": (flops, moved),
+                "block_step[slab-hoh]": (fh, mh)}
+        csr = csr_operator(hs9_t, iz_l, slab.cols, width=nx + 1)
+        flat = x.view(9 * (nx + 1), 9)
+        e, sc = rel_err(torch.sparse.mm(csr, flat).view(n, 9, 9), y0)
+        check(e <= 1e-12 * sc, f"library SpMV on the slab: {e}")
+        lib = {"spmv_dot[slab]": cuda_ms(lambda: torch.sparse.mm(csr, flat),
+                                         5),
+               "update_norm[slab]": None, "block_step[slab-hoh]": None}
+        csr = csr_operator(op18.hs, op18.iz, op18.cols, op18.onsite,
+                           op18.izo, width=nx + 1)
+        flat = xb[18].view(18 * (nx + 1), 18)
+        e, sc = rel_err(torch.sparse.mm(csr, flat).view(n, 18, 18),
+                        k4["block_step[slab]"][1][0])
+        check(e <= 1e-12 * sc, f"library SpMV d=18 on the slab: {e}")
+        lib["block_step[slab]"] = cuda_ms(
+            lambda: torch.sparse.mm(csr, flat), 5)
+        del csr, flat
+        for f, (tk, tp) in times.items():
+            fl, by = work[f]
+            ops_s, bytes_s = fl / FP64_TENSOR_FLOPS, by / HBM_BYTES_S
+            forms[f].update(ms=tk, plain_ms=tp, library_ms=lib[f],
+                            bound_ms=1e3 * max(ops_s, bytes_s),
+                            bound_by="operations" if ops_s >= bytes_s
+                            else "bytes")
+        say(13, f"slab 0 of {RANKS}: {n} own rows + {nx - n} halo rows, "
+                f"{nb} occupied blocks; " + "; ".join(
+                    f"{f} {forms[f]['ms']:.4f} ms (plain "
+                    f"{forms[f]['plain_ms']:.4f}, bound "
+                    f"{forms[f]['bound_ms']:.4f} ms {forms[f]['bound_by']}, "
+                    f"{100 * forms[f]['bound_ms'] / forms[f]['ms']:.1f}% of "
+                    f"it" + ("" if lib[f] is None else
+                             f", library {lib[f]:.4f} ms") + ")"
+                    for f in SLAB_FORMS))
+        del ops, xb, hx, k4, x, v, pmn, buf, out, out0, y, y0
+    say(13, "slab kernels vs plain on both slabs: " + ", ".join(
+        f"{f} {forms[f]['err']:.3e}" for f in SLAB_FORMS))
+    torch.cuda.empty_cache()
+
+    # two ranks sharing the card: the box-60 recursions on row slabs ----
+    t1 = time.perf_counter()
+    res = launch.run(
+        "rslmtoasa_tpu_torch.parallel.stages:slab_cases", RANKS,
+        device=ranks_device, share_cards=True, timeout=900.0, cases={
+            "block": dict(kinds=("block", "cheb", "scalar")),
+            "hoh": dict(hoh=True, hso=hb.eeo, enim=hb.enim,
+                        kinds=("block",))},
+        hs=hb.ee, lsham=hb.lsham, iz=hb.iz, cols=hb.cols, starts=[0],
+        lld=lld, window=WINDOW, single=False)
+    t_launch = time.perf_counter() - t1
+    ops = {"block": BlockOperator(hb.ee, hb.iz, hb.cols, hb.lsham).to(dev),
+           "hoh": BlockOperator(hb.ee, hb.iz, hb.cols, hb.lsham, hoh=True,
+                                hso=hb.eeo, enim=hb.enim).to(dev)}
+    psi_b = block_start_vectors(kk, [0], dev)
+    full = {("block", "block"): block_lanczos(ops["block"], psi_b, lld),
+            ("block", "cheb"): (chebyshev_moments(ops["block"], psi_b, lld,
+                                                  *CHEB_AB),),
+            ("block", "scalar"): HaydockOperator(
+                hs9, hb.iz, hb.cols).to(dev).coefficients(
+                    scalar_start_vectors(kk, [0], dev), lld, roll=False),
+            ("hoh", "block"): block_lanczos(ops["hoh"], psi_b, lld)}
+    want_launches = {("block", "block"): {"block_step": lld - 1},
+                     ("block", "cheb"): {"block_step": lld + 1},
+                     ("block", "scalar"): {"spmv_dot": lld - 1,
+                                           "update_norm": lld - 1},
+                     ("hoh", "block"): {"block_step": 2 * (lld - 1)}}
+    for (case, kind), want in full.items():
+        got = res[case][kind]
+        got = got if isinstance(got, tuple) else (got,)
+        err = max(float(np.abs(g - w.cpu().numpy()).max())
+                  for g, w in zip(got, want))
+        launches = {k: v for k, v in res[case]["launches"][kind].items()
+                    if v}
+        check(err <= 1e-11, f"{case} {kind} on row slabs vs full width: "
+              f"{err}")
+        check(launches == want_launches[(case, kind)],
+              f"{case} {kind} launches {launches}")
+        per = 2 if case == "hoh" else 1
+        steps = lld + 1 if kind == "cheb" else lld - 1
+        check(res[case]["exchanges"][kind] == per * steps,
+              f"{case} {kind}: {res[case]['exchanges'][kind]} exchanges")
+        say(13, f"box 60 {case} {kind} on {RANKS} ranks' row slabs vs the "
+                f"single rank's full width |d|={err:.3e}; launches per rank "
+                f"{launches}, halo exchanges {res[case]['exchanges'][kind]};"
+                f" " + per_rank_text(res[case]["ranks"][kind]))
+    records["spmv_dot[slab]"]["launches"] = \
+        res["block"]["launches"]["scalar"]["spmv_dot"]
+    records["update_norm[slab]"]["launches"] = \
+        res["block"]["launches"]["scalar"]["update_norm"]
+    records["block_step[slab]"]["launches"] = \
+        res["block"]["launches"]["block"]["block_step"]
+    records["block_step[slab-hoh]"]["launches"] = \
+        res["hoh"]["launches"]["block"]["block_step"]
+    for f, rec in forms.items():
+        records[f].update(max_abs_err=rec["err"],
+                          **{k: v for k, v in rec.items() if k != "err"})
+    say(13, f"the slab launch in {t_launch:.1f} s (spawn, rendezvous, the "
+            f"tables to both ranks, the four recursions)")
+    del ops, full, res
+    torch.cuda.empty_cache()
+
+    # two ranks: the box-30 exchange run, chain-sharded -----------------
+    small = build_synthetic_bcc(device=dev, nsp=2, **dict(
+        PRESET, box=small_box, lld=lld))
+    xsys = synthetic_exchange(copy.deepcopy(small))
+    pairs = xsys.cfg.lattice.ijpair
+    arrays, pots = system_to_numpy(xsys)
+    one = stages.exchange_run(arrays, pots, xsys.cfg, pairs, device=dev)
+    # each rank on as many host threads as this process, as one rank runs
+    two = launch.run("rslmtoasa_tpu_torch.parallel.stages:exchange_run",
+                     RANKS, device=ranks_device, share_cards=True,
+                     threads=torch.get_num_threads(), timeout=900.0,
+                     arrays=arrays, potentials=pots, cfg=xsys.cfg,
+                     pairs=pairs)
+    err = float(np.abs(two["jij"] - one["jij"]).max())
+    chains = max(float(np.abs(g - w).max())
+                 for g, w in zip(two["chains"], one["chains"]))
+    say(13, f"exchange chains on {RANKS} ranks vs one |d|={chains:.3e}")
+    check(err <= 1e-10, f"exchange on {RANKS} ranks vs one: {err}")
+    say(13, f"box {small_box} exchange, pairs {pairs.tolist()}, chain-"
+            f"sharded over {RANKS} ranks vs one rank: |d Jij/Dij/Aij|="
+            f"{err:.3e} mRy; one rank {one['wall']:.3f} s "
+            f"{one['peak'] / 2**30:.2f} GiB; " + per_rank_text(two["ranks"]))
+    del xsys, arrays, pots
+
+    # two ranks: the block SCF through the CLI on row slabs -------------
+    with tempfile.TemporaryDirectory() as work:
+        src = os.path.join(work, "src")
+        os.makedirs(src)
+        box_input(small, src, small_box)
+        dirs = {k: os.path.join(work, k) for k in ("one", "two")}
+        for d in dirs.values():
+            shutil.copytree(src, d)
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main([os.path.join(dirs["one"], "input.nml"),
+                           f"output={dirs['one']}", f"device={dev}"])
+        t_one = time.perf_counter() - t1
+        check(rc == 0, "one rank's CLI run")
+        out = launch.run(
+            "rslmtoasa_tpu_torch.parallel.stages:cli_main", RANKS,
+            device=ranks_device, share_cards=True,
+            threads=torch.get_num_threads(), timeout=900.0,
+            argv=[os.path.join(dirs["two"], "input.nml"),
+                  f"output={dirs['two']}", f"device={ranks_device}"],
+            env={"RSLMTO_ROWSHARD_BYTES": str(CLI_ROWSHARD_BYTES)})
+        check(out["rc"] == 0, f"the CLI on {RANKS} ranks")
+        check(all(c.get("slab_block", 0) >= 1 and set(c) == {"slab_block"}
+                  for c in out["routes"]),
+              f"the CLI on {RANKS} ranks did not run on row slabs: "
+              f"{out['routes']}")
+        nfiles, worst = files_close(dirs["one"], dirs["two"])
+        say(13, f"box {small_box} block SCF, {NSTEP} iterations, through "
+                f"the CLI on {RANKS} ranks (row slabs) vs one rank: "
+                f"{nfiles} files {sorted(os.listdir(dirs['two']))} within "
+                f"{worst:.3e}; "
+                f"routes per rank {out['routes']}; "
+                f"one rank {t_one:.3f} s; " + per_rank_text(out["ranks"]))
+    del small
+
+    # one NCCL rank ------------------------------------------------------
+    res = launch.run("rslmtoasa_tpu_torch.parallel.stages:chain_block", 1,
+                     device=ranks_device, share_cards=False, timeout=600.0,
+                     hs=hb.ee, lsham=hb.lsham, iz=hb.iz, cols=hb.cols,
+                     starts=[0, kk // 2], lld=lld)
+    same = all(np.array_equal(g, w) for g, w in zip(res["block"],
+                                                    res["block_1"]))
+    check(res["world"] == 1 and same and (
+        res["backend"] == "nccl" or ranks_device == "cpu"),
+        f"one {res['backend']} rank: bit-equal {same}")
+    say(13, f"one {res['backend']} rank on {res['device']}: the chain-"
+            f"sharded block recursion (R = 2, box 60) bit-equal to the "
+            f"single rank, {res['wall']:.3f} s")
+
+    # the dry run at two ranks on the card ------------------------------
+    t1 = time.perf_counter()
+    dry = dryrun.run(RANKS, ranks_device)
+    check(all(v <= dry["bars"][k] for k, v in dry["errors"].items()),
+          f"dry run: {dry['errors']}")
+    say(13, f"dry run on {RANKS} ranks ({dry['device']}): " + ", ".join(
+        f"{k} {v:.2e}" for k, v in dry["errors"].items())
+        + f"; {time.perf_counter() - t1:.1f} s; not applicable: "
+        + "; ".join(dryrun.NOT_APPLICABLE))
+    # what the dry run's exchange bar parts: the Jij of chains moved by
+    # roundoff and of chains wrong at 1e-12, on the card
+    rnd = stages.exchange_roundoff(device=dev, eps=(1e-15, 1e-12))
+    sound = max(j for _, j in rnd[1e-15])
+    wrong = min(j for _, j in rnd[1e-12])
+    check(sound < dryrun.BARS["exchange"] < wrong,
+          f"exchange bar {dryrun.BARS['exchange']} outside ({sound}, "
+          f"{wrong})")
+    say(13, "dry run's exchange on one rank, chains moved by e of "
+            "themselves (4 seeds): " + "; ".join(
+                f"e={e:.0e}: |d chains| " + ", ".join(
+                    f"{c:.2e}" for c, _ in v) + " -> |d Jij/Dij/Aij| "
+                + ", ".join(f"{j:.2e}" for _, j in v) + " mRy"
+                for e, v in rnd.items())
+        + f" (bar {dryrun.BARS['exchange']:.0e})")
+    say(13, f"phase 13 in {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -2478,7 +2878,11 @@ def main():
     torch.cuda.empty_cache()
 
     # 12. the large cluster ---------------------------------------------
-    large_cluster_phase(dev, records, every)
+    big = large_cluster_phase(dev, records, every)
+
+    # 13. ranks on the one card -----------------------------------------
+    multi_rank_phase(dev, records, big)
+    del big
     check("jax" not in sys.modules, "no JAX imported")
 
     kernels = [dict(name=n, route="cuda", source=SOURCES[n],
@@ -2487,7 +2891,7 @@ def main():
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"])
                for n, r in records.items()]
-    say(13, f"total {time.perf_counter() - t_start:.1f} s")
+    say(14, f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -28,7 +28,15 @@ hierarchical timing report.  The other ``&calculation`` branches:
   written to output.lammpstrj.
 
 The recursions run on ``device`` (default ``cuda``; without a card that
-raises).  ``&lattice write_artifacts`` (or ``RSLMTO_WRITE_GEOM``) writes
+raises).  Under ``torchrun --nproc_per_node=N -m rslmtoasa_tpu_torch
+input.nml`` each process joins the process group
+(:func:`.parallel.mesh.init_distributed`: NCCL on ``cuda:LOCAL_RANK``,
+gloo with ``device=cpu`` or with ``RSLMTO_SHARE_CARDS=1`` where ranks
+share cards) and the recursions are split over the ranks
+(:mod:`.parallel.dispatch`).  Every rank runs the host parts (the
+Hamiltonian, the fits, the atomic-sphere solver, the mixer), as the
+reference's ranks do; only rank 0 writes into ``output`` and logs, the
+others write into a temporary directory that is removed at their end.  ``&lattice write_artifacts`` (or ``RSLMTO_WRITE_GEOM``) writes
 the geometry exports ``clust``, ``map``, ``str.out``, ``sbar`` and
 ``view.sbar`` after the system is built (``utils/artifacts.py``).
 """
@@ -36,7 +44,9 @@ the geometry exports ``clust``, ``map``, ``str.out``, ``sbar`` and
 from __future__ import annotations
 
 import os
+import shutil
 import sys
+import tempfile
 
 from .config import JobConfig
 from .utils.device import resolve_device
@@ -72,6 +82,22 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     input_file, extra, outdir, device = parse_args(argv)
     dev = resolve_device(device)
+    from .parallel.mesh import init_distributed, rank
+
+    dev = init_distributed(device=device) or dev
+    if rank() != 0:
+        scratch = tempfile.mkdtemp(prefix=f"rslmto_rank{rank()}_")
+        level = g_logger.level
+        g_logger.level = 100  # above fatal: only rank 0 logs
+        try:
+            return _run(input_file, extra, scratch, dev, quiet=True)
+        finally:
+            g_logger.level = level
+            shutil.rmtree(scratch, ignore_errors=True)
+    return _run(input_file, extra, outdir, dev)
+
+
+def _run(input_file, extra, outdir, dev, quiet: bool = False) -> int:
     if not os.path.exists(input_file):
         g_logger.error(f"input file {input_file} not found")
         return 1
@@ -82,11 +108,11 @@ def main(argv=None) -> int:
     os.makedirs(outdir, exist_ok=True)
     if cfg.atoms.database in ("", "./", "."):
         cfg.atoms.database = os.path.dirname(os.path.abspath(input_file))
-    return run_calculation(cfg, outdir, device=dev)
+    return run_calculation(cfg, outdir, device=dev, quiet=quiet)
 
 
 def run_calculation(cfg: JobConfig, workdir: str = ".",
-                    device="cuda") -> int:
+                    device="cuda", quiet: bool = False) -> int:
     """Run the dispatched pipeline for a built config (the body of
     ``calculation%process``, calculation.f90:175-211)."""
     pre = (cfg.calculation.pre_processing or "none").strip()
@@ -107,10 +133,11 @@ def run_calculation(cfg: JobConfig, workdir: str = ".",
         # lattice.f90:1819+)
         artifacts.export_geometry(sys_, workdir)
     run_system(sys_, workdir)
-    print(g_timer.report())
-    from .utils.alloc import g_alloc
+    if not quiet:
+        print(g_timer.report())
+        from .utils.alloc import g_alloc
 
-    print(g_alloc.report())
+        print(g_alloc.report())
     return 0
 
 

@@ -12,12 +12,13 @@
 //                                        and cut into B fragments by
 //                                        block_kernels.pack_table
 //   iz     (kk,) int32                   type of each row
-//   cols   (kk, nslots) int32            neighbour rows, sentinel kk
-//   x      (kk+1, D, C)                  row kk is zero
+//   cols   (kk, nslots) int32            neighbour rows, sentinel nx
+//   x      (nx+1, D, C)                  row nx is zero; nx >= kk (a row
+//                                        slab: kk own rows, then its halo)
 //   onsite (nto, nqo, NT, 32) double2    onsite table O, packed the same
 //                                        way as one slot, or null
 //   izo    (kk,) int32                   onsite type of each row
-//   p      (kk+1, D, C)                  onsite operand and Gram bra
+//   p      (nx+1, D, C)                  onsite operand and Gram bra
 //   add    (kk, D, C)                    added to y, or null
 //   y      (kk + pad, D, C)              out; with pad = 1, row kk is zero
 //   gram   (nrowblk, R, D, D)            out, or null
@@ -230,7 +231,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                       const int* __restrict__ izol,
                       int* __restrict__ counter, int ntype, int nto,
                       int ntypel, int ntol, int nlt, int nslots, int kk,
-                      int nout, int C, int cq) {
+                      int nx, int nout, int C, int cq) {
   constexpr int RT = Width<D>::RT, NT = Width<D>::NT, GC = Width<D>::GC;
   constexpr int FRAG = NT * 32;  // double2 of one quad's fragments
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -347,7 +348,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (!mine[k] || q >= D * nslots) return nullptr;
       const int m = q / D, b = q - D * m;
       const int col = colsh[pr[k] * nslots + m];
-      if (col >= kk) return nullptr;
+      if (col >= nx) return nullptr;
       return x + ((size_t)col * D + b) * C + c0 + pc[k];
     };
     auto onsite_src = [&](int j, int k) -> const double2* {
@@ -487,7 +488,7 @@ int launch(const void* tab, const void* iz, const void* cols, const void* x,
            const void* add, void* y, void* gram, const void* tabl,
            const void* izl, const void* onl, const void* izol, void* counter,
            int ntype, int nto, int ntypel, int ntol, int nl, int nslots,
-           int kk, int pad, int C, void* stream) {
+           int kk, int nx, int pad, int C, void* stream) {
   constexpr int RT = Width<D>::RT;
   cudaError_t err;
   const int optin = smem_optin(err);
@@ -520,7 +521,7 @@ int launch(const void* tab, const void* iz, const void* cols, const void* x,
       (const double2*)p, (const double2*)add, (double2*)y, (double2*)gram,
       (const double2*)tabl, (const int*)izl, (const double2*)onl,
       (const int*)izol, (int*)counter, ntype, nto, ntypel, ntol, nl / RT,
-      nslots, kk, nout, C, cq);
+      nslots, kk, nx, nout, C, cq);
   return (int)cudaGetLastError();
 }
 
@@ -539,16 +540,16 @@ int block_step(int d, const void* tab, const void* iz, const void* cols,
                const void* p, const void* add, void* y, void* gram,
                const void* tabl, const void* izl, const void* onl,
                const void* izol, void* counter, int ntype, int nto,
-               int ntypel, int ntol, int nl, int nslots, int kk, int pad,
-               int C, void* stream) {
+               int ntypel, int ntol, int nl, int nslots, int kk, int nx,
+               int pad, int C, void* stream) {
   if (d == 9)
     return launch<9>(tab, iz, cols, x, onsite, izo, p, add, y, gram, tabl,
                      izl, onl, izol, counter, ntype, nto, ntypel, ntol, nl,
-                     nslots, kk, pad, C, stream);
+                     nslots, kk, nx, pad, C, stream);
   if (d == 18)
     return launch<18>(tab, iz, cols, x, onsite, izo, p, add, y, gram, tabl,
                       izl, onl, izol, counter, ntype, nto, ntypel, ntol, nl,
-                      nslots, kk, pad, C, stream);
+                      nslots, kk, nx, pad, C, stream);
   return (int)cudaErrorInvalidValue;
 }
 

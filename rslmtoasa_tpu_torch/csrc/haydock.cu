@@ -22,8 +22,10 @@
 //   tab   (ntype, nquad, 3, 32) double2      realified type table, packed
 //                                            by haydock_kernels.pack_table
 //   iz    (kk,) int32                        type per row
-//   cols  (kk, nslots) int32                 neighbour rows, sentinel kk
-//   psi   (kk+1, 9, C) complex128            row kk is all zero
+//   cols  (kk, nslots) int32                 neighbour rows, sentinel nx
+//   psi   (nx+1, 9, C) complex128            row nx is all zero; nx >= kk
+//                                            (a row slab: kk own rows,
+//                                            then its halo rows)
 //   y, v, pmn (kk, 9, C) complex128
 //   partials (nrowblk, C) float64, nrowblk = ceil(kk / ROWS_PER_BLOCK)
 //   a     (C,) float64                       finished dot of K2'
@@ -194,7 +196,7 @@ __device__ __forceinline__ void spmv_tiles(
     const double2* __restrict__ tab, const int* __restrict__ iz,
     const int* __restrict__ cols, const double2* __restrict__ psi,
     double2* __restrict__ y, double* __restrict__ part, int ntype,
-    int nslots, int kk, int C, int ct, double*& scratch) {
+    int nslots, int kk, int nx, int C, int ct, double*& scratch) {
   constexpr bool PIPE = MODE == K2;
   constexpr int NX = 2 * MT;  // pairs (gathered inputs) per lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -273,13 +275,13 @@ __device__ __forceinline__ void spmv_tiles(
       if (!__any_sync(0xffffffffu, any)) continue;
       const double2* tq = tabsh + (size_t)ty * nquad * NTILE * 32;
       // source of the lane's input k of quad j; nullptr where it is zero
-      // (masked, padding, or the sentinel row kk)
+      // (masked, padding, or the sentinel row nx)
       auto src = [&](int j, int k) -> const double2* {
         const int q = QUAD * j + t;
         if (!mine[k] || q >= nq9) return nullptr;
         const int m = q / NORB, b = q - NORB * m;
         const int col = colsh[pr[k] * nslots + m];
-        if (col == kk) return nullptr;
+        if (col == nx) return nullptr;
         return psi + ((size_t)col * NORB + b) * C + c0 + pc[k];
       };
       if constexpr (PIPE) {
@@ -393,10 +395,10 @@ __global__ void __launch_bounds__(K1_THREADS, 1)
                     const int* __restrict__ cols,
                     const double2* __restrict__ psi, double2* __restrict__ y,
                     double* __restrict__ apart, int ntype, int nslots,
-                    int kk, int C, int ct) {
+                    int kk, int nx, int C, int ct) {
   double* scratch;
   spmv_tiles<K1, K1_MT>(tab, iz, cols, psi, y, apart, ntype, nslots,
-                        kk, C, ct, scratch);
+                        kk, nx, C, ct, scratch);
 }
 
 // K1' with one half of its work left out (MODE GATHER_ONLY or MMA_ONLY),
@@ -408,10 +410,10 @@ __global__ void __launch_bounds__(K1_THREADS, 1)
                      const int* __restrict__ cols,
                      const double2* __restrict__ psi, double2* __restrict__ y,
                      double* __restrict__ apart, int ntype, int nslots,
-                     int kk, int C, int ct) {
+                     int kk, int nx, int C, int ct) {
   double* scratch;
   spmv_tiles<MODE, K1_MT>(tab, iz, cols, psi, y, apart, ntype, nslots,
-                          kk, C, ct, scratch);
+                          kk, nx, C, ct, scratch);
 }
 
 __global__ void __launch_bounds__(K2_THREADS, 1)
@@ -420,12 +422,12 @@ __global__ void __launch_bounds__(K2_THREADS, 1)
         const int* __restrict__ cols,
         const double2* __restrict__ psi, double2* __restrict__ y,
         double* __restrict__ bpart, int* __restrict__ counter,
-        double* __restrict__ a, int ntype, int nslots, int kk, int C,
-        int ct) {
+        double* __restrict__ a, int ntype, int nslots, int kk, int nx,
+        int C, int ct) {
   __shared__ int last;
   double* red;
   spmv_tiles<K2, K2_MT>(tab, iz, cols, psi, y, bpart, ntype, nslots,
-                        kk, C, ct, red);
+                        kk, nx, C, ct, red);
 
   // the last block to finish adds the row-block partials
   __threadfence();
@@ -535,7 +537,8 @@ int spmv_grid(K kernel, int threads, size_t smem, int ntiles,
 // K1' or one of its measurement halves.
 int launch_k1(int mode, const void* tab, const void* iz,
               const void* cols, const void* psi, void* y, void* apart,
-              int ntype, int nslots, int kk, int C, void* stream) {
+              int ntype, int nslots, int kk, int nx, int C,
+              void* stream) {
   const int ct = chain_tile(C);
   const size_t smem = spmv_smem(false, ntype, nslots, C);
   auto kernel = mode == K1            ? spmv_dot_kernel
@@ -550,7 +553,7 @@ int launch_k1(int mode, const void* tab, const void* iz,
   kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const double2*)tab, (const int*)iz, (const int*)cols,
       (const double2*)psi, (double2*)y, (double*)apart, ntype, nslots, kk,
-      C, ct);
+      nx, C, ct);
   return (int)cudaGetLastError();
 }
 
@@ -561,9 +564,9 @@ extern "C" {
 // Returns the cudaError_t of the set-up calls or of the launch.
 int haydock_spmv_dot(const void* tab, const void* iz, const void* cols,
                      const void* psi, void* y, void* apart, int ntype,
-                     int nslots, int kk, int C, void* stream) {
-  return launch_k1(K1, tab, iz, cols, psi, y, apart, ntype, nslots, kk, C,
-                   stream);
+                     int nslots, int kk, int nx, int C, void* stream) {
+  return launch_k1(K1, tab, iz, cols, psi, y, apart, ntype, nslots, kk, nx,
+                   C, stream);
 }
 
 // K1' with its gathers (mode 2) or its MMAs (mode 3) only: the same
@@ -571,12 +574,12 @@ int haydock_spmv_dot(const void* tab, const void* iz, const void* cols,
 // are written but mean nothing.
 int haydock_spmv_part(int mode, const void* tab, const void* iz,
                       const void* cols, const void* psi, void* y,
-                      void* apart, int ntype, int nslots, int kk, int C,
-                      void* stream) {
+                      void* apart, int ntype, int nslots, int kk, int nx,
+                      int C, void* stream) {
   if (mode != GATHER_ONLY && mode != MMA_ONLY)
     return (int)cudaErrorInvalidValue;
-  return launch_k1(mode, tab, iz, cols, psi, y, apart, ntype, nslots, kk, C,
-                   stream);
+  return launch_k1(mode, tab, iz, cols, psi, y, apart, ntype, nslots, kk, nx,
+                   C, stream);
 }
 
 // K2'.  bpart (nrowblk, C) float64 is scratch; counter is one int that is
@@ -584,7 +587,8 @@ int haydock_spmv_part(int mode, const void* tab, const void* iz,
 int haydock_spmv_dot_pipelined(const void* tab, const void* iz,
                                const void* cols, const void* psi, void* y,
                                void* a, void* bpart, void* counter, int ntype,
-                               int nslots, int kk, int C, void* stream) {
+                               int nslots, int kk, int nx, int C,
+                               void* stream) {
   const int ct = chain_tile(C);
   const size_t smem = spmv_smem(true, ntype, nslots, C);
   const int threads = 32 * spmv_warps(K2_MT, ct);
@@ -597,7 +601,7 @@ int haydock_spmv_dot_pipelined(const void* tab, const void* iz,
   spmv_dot_pipelined_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const double2*)tab, (const int*)iz, (const int*)cols,
       (const double2*)psi, (double2*)y, (double*)bpart, (int*)counter,
-      (double*)a, ntype, nslots, kk, C, ct);
+      (double*)a, ntype, nslots, kk, nx, C, ct);
   return (int)cudaGetLastError();
 }
 

@@ -9,6 +9,9 @@ and the per-row-tile partials of the Gram blocks ``p^H y``:
 ``G[t, r] = sum_{i in tile t} p[i, :, r]^H y[i, :, r]``, shape
 ``(nrowblk, R, d, d)``, where ``[:, r]`` is the d columns of start block r.
 The caller folds the partials with ``.sum(0)``, as K1''s caller does.
+As K1' does, it reads ``x`` (and ``p``) of ``nx + 1`` rows, ``nx >= kk``
+the sentinel, and computes the first kk rows: a row slab's own rows, its
+halo rows after them (:mod:`.rowslab`).
 ``O`` (with ``izo`` and ``p``), ``add`` and the Gram are optional; ``pad``
 returns y with a zero row kk appended, ready to be the next ``x``.
 
@@ -55,7 +58,7 @@ import torch
 
 from . import cuda_build
 from .haydock_kernels import _check, _ptr, _raise_on, _route, _stream, \
-    _ticket, block_spmv, pack_table, packed_table
+    _ticket, block_spmv, pack_table, packed_table, rows_read
 
 TILE_PAIRS = 288  # (row, column) pairs of a tile (= TILE_PAIRS in the .cu)
 WIDTHS = (9, 18)
@@ -177,11 +180,10 @@ def build_library() -> str:
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    if not cuda_build.is_current(SOURCE, LIBRARY):
-        build_library()
+    cuda_build.ensure(SOURCE, LIBRARY)
     lib = ctypes.CDLL(LIBRARY)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.block_step.argtypes = [ci] + [vp] * 15 + [ci] * 9 + [vp]
+    lib.block_step.argtypes = [ci] + [vp] * 15 + [ci] * 10 + [vp]
     lib.block_step.restype = ci
     lib.block_step_chunks.argtypes = [ci] * 6
     lib.block_step_chunks.restype = ci
@@ -214,8 +216,9 @@ def block_step(tab, iz, cols, x, onsite=None, izo=None, p=None, add=None,
     """K4: ``y = add + H x + O p`` and the Gram partials of ``p^H y``.
 
     tab (ntype, nslots, d, d) complex128, iz (kk,) int32, cols (kk, nslots)
-    int32 with sentinel kk, x (kk+1, d, C) complex128 whose row kk is zero;
-    optional onsite (nto, d, d) with izo (kk,) int32, p (kk+1, d, C) (needed
+    int32 with sentinel nx, x (nx+1, d, C) complex128 whose row nx is zero
+    (nx = kk but for a row slab); optional onsite (nto, d, d) with izo
+    (kk,) int32, p (nx+1, d, C) (needed
     by the onsite term and the Gram), add (kk, d, C), and the route
     ``zone`` of a table with a local zone (:func:`local_zone` of these
     iz and izo).  Returns y (kk + pad, d, C), its row kk zero with ``pad``,
@@ -240,14 +243,15 @@ def block_step(tab, iz, cols, x, onsite=None, izo=None, p=None, add=None,
     _check(tab, "tab", z, (ntype, nslots, d, d), dev)
     _check(iz, "iz", torch.int32, (kk,), dev)
     _check(cols, "cols", torch.int32, (kk, nslots), dev)
-    _check(x, "x", z, (kk + 1, d, c), dev)
+    nx = rows_read(x, kk)
+    _check(x, "x", z, (nx + 1, d, c), dev)
     nto = 0
     if onsite is not None:
         nto = onsite.shape[0]
         _check(onsite, "onsite", z, (nto, d, d), dev)
         _check(izo, "izo", torch.int32, (kk,), dev)
     if p is not None:
-        _check(p, "p", z, (kk + 1, d, c), dev)
+        _check(p, "p", z, (nx + 1, d, c), dev)
     if add is not None:
         _check(add, "add", z, (kk, d, c), dev)
     lib = _library()
@@ -275,7 +279,7 @@ def block_step(tab, iz, cols, x, onsite=None, izo=None, p=None, add=None,
             d, _ptr(packed), _ptr(iz), _ptr(cols), _ptr(x), opt(packed_on),
             opt(izo), opt(p), opt(add), _ptr(y), opt(g), *map(opt, loc),
             _ptr(_ticket(dev, 2)), ntype, nto, ntl, ntol, nl, nslots, kk,
-            int(pad), c, _stream(dev))
+            nx, int(pad), c, _stream(dev))
     _raise_on(err, "block_step")
     block_step.launches += 1
     return y, g

@@ -4,11 +4,14 @@ Each kernel module keeps its source in ``csrc/`` and its library in
 ``_build/`` (gitignored) and builds it at first use, and again whenever the
 source is newer than the library.  The sources have a plain C interface and
 are loaded with ctypes, so nvcc takes seconds, not the minutes of a build
-that includes PyTorch's headers.
+that includes PyTorch's headers.  :func:`ensure` takes a file lock
+around the check and the build, so that ranks starting together on one
+machine build each library once.
 """
 
 from __future__ import annotations
 
+import fcntl
 import os
 import shutil
 import subprocess
@@ -56,3 +59,15 @@ def build(source: str, library: str) -> str:
 def is_current(source: str, library: str) -> bool:
     return (os.path.exists(library)
             and os.path.getmtime(library) >= os.path.getmtime(source))
+
+
+def ensure(source: str, library: str) -> None:
+    """Build ``library`` unless it is current, under a lock in its
+    directory: a process that waited finds it built."""
+    if is_current(source, library):
+        return
+    os.makedirs(os.path.dirname(library), exist_ok=True)
+    with open(library + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not is_current(source, library):
+            build(source, library)

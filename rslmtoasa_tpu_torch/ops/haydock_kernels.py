@@ -35,6 +35,12 @@ Each wrapper counts its kernel launches in its ``launches`` attribute.
 K1' and K3' (kernels and plain versions) produce partials over the same
 blocks of :data:`ROWS_PER_BLOCK` rows, shape ``(nrowblk, C)``; the caller
 folds them with ``.sum(0)``.  K2' returns the folded ``(C,)`` sum.
+
+The rows computed and the rows read may differ: ``psi`` holds ``nx + 1``
+rows, ``nx >= kk``, its last row zero and ``nx`` the sentinel column, and
+the kernels compute the first ``kk`` of them (a row slab of
+:mod:`.rowslab`: its own rows, then the halo rows its columns reach).
+The dots and norms cover the ``kk`` computed rows only.
 """
 
 from __future__ import annotations
@@ -237,21 +243,16 @@ def build_library() -> str:
     return cuda_build.build(SOURCE, LIBRARY)
 
 
-def library_is_current() -> bool:
-    return cuda_build.is_current(SOURCE, LIBRARY)
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
-    if not library_is_current():
-        build_library()
+    cuda_build.ensure(SOURCE, LIBRARY)
     lib = ctypes.CDLL(LIBRARY)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.haydock_spmv_dot.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+    lib.haydock_spmv_dot.argtypes = [vp] * 6 + [ci] * 5 + [vp]
     lib.haydock_spmv_dot.restype = ci
-    lib.haydock_spmv_dot_pipelined.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+    lib.haydock_spmv_dot_pipelined.argtypes = [vp] * 8 + [ci] * 5 + [vp]
     lib.haydock_spmv_dot_pipelined.restype = ci
-    lib.haydock_spmv_part.argtypes = [ci] + [vp] * 6 + [ci] * 4 + [vp]
+    lib.haydock_spmv_part.argtypes = [ci] + [vp] * 6 + [ci] * 5 + [vp]
     lib.haydock_spmv_part.restype = ci
     lib.haydock_spmv_smem.argtypes = [ci] * 4
     lib.haydock_spmv_smem.restype = ctypes.c_longlong
@@ -274,20 +275,31 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
             f"(contiguous={t.is_contiguous()})")
 
 
+def rows_read(x: torch.Tensor, kk: int) -> int:
+    """``nx``, the sentinel of a kernel's input ``x`` of ``nx + 1`` rows,
+    which must cover the ``kk`` rows the kernel computes."""
+    nx = x.shape[0] - 1
+    if nx < kk:
+        raise ValueError(f"the input holds {nx + 1} rows, fewer than the "
+                         f"{kk} + 1 the kernel needs")
+    return nx
+
+
 def _spmv_shape(hs, iz, cols, psi, what: str):
     """Checks the SpMV kernels' inputs; returns (device, ntype, nslots,
-    kk, C)."""
+    kk, nx, C)."""
     dev = psi.device
     ntype, nslots = hs.shape[:2]
     kk = cols.shape[0]
     c = psi.shape[2]
+    nx = rows_read(psi, kk)
     _check(hs, "hs", torch.complex128, (ntype, nslots, NORB, NORB), dev)
     _check(iz, "iz", torch.int32, (kk,), dev)
     _check(cols, "cols", torch.int32, (kk, nslots), dev)
-    _check(psi, "psi", torch.complex128, (kk + 1, NORB, c), dev)
+    _check(psi, "psi", torch.complex128, (nx + 1, NORB, c), dev)
     if kk == 0 or c == 0:
         raise ValueError(f"{what} needs kk > 0 and C > 0")
-    return dev, ntype, nslots, kk, c
+    return dev, ntype, nslots, kk, nx, c
 
 
 def _raise_on(err: int, what: str):
@@ -313,35 +325,35 @@ def _route(t: torch.Tensor) -> str:
 # wrappers
 def _spmv_setup(hs, iz, cols, psi, what: str, pipelined: bool):
     """Checks an SpMV's inputs and its shared memory; returns (device,
-    ntype, nslots, kk, C, library, packed table)."""
-    dev, ntype, nslots, kk, c = _spmv_shape(hs, iz, cols, psi, what)
+    ntype, nslots, kk, nx, C, library, packed table)."""
+    dev, ntype, nslots, kk, nx, c = _spmv_shape(hs, iz, cols, psi, what)
     lib = _library()
     smem = lib.haydock_spmv_smem(int(pipelined), ntype, nslots, c)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{what}: type table and buffers need {smem} B of "
                          f"shared memory, over the {_SMEM_LIMIT} B a block "
                          f"may use")
-    return dev, ntype, nslots, kk, c, lib, packed_table(hs)
+    return dev, ntype, nslots, kk, nx, c, lib, packed_table(hs)
 
 
 def spmv_dot(hs, iz, cols, psi) -> Tuple[torch.Tensor, torch.Tensor]:
     """``y = H psi`` and the per-row-block partials of ``Re<psi|y>``.
 
     hs (ntype, nslots, 9, 9) complex128, iz (kk,) int32, cols
-    (kk, nslots) int32 with sentinel kk, psi (kk+1, 9, C) complex128 whose
-    row kk is zero.  Returns y (kk, 9, C) complex128 and apart
+    (kk, nslots) int32 with sentinel nx, psi (nx+1, 9, C) complex128 whose
+    row nx is zero (nx = kk but for a row slab).  Returns y (kk, 9, C) complex128 and apart
     (nrowblk, C) float64; ``apart.sum(0)`` is the chain's Lanczos ``a``.
     """
     if _route(psi) == "cpu":
         return spmv_dot_ref(hs, iz, cols, psi)
-    dev, ntype, nslots, kk, c, lib, table = _spmv_setup(
+    dev, ntype, nslots, kk, nx, c, lib, table = _spmv_setup(
         hs, iz, cols, psi, "spmv_dot", False)
     y = torch.empty((kk, NORB, c), dtype=torch.complex128, device=dev)
     apart = torch.empty((nrowblk(kk), c), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         err = lib.haydock_spmv_dot(
             _ptr(table), _ptr(iz), _ptr(cols), _ptr(psi),
-            _ptr(y), _ptr(apart), ntype, nslots, kk, c, _stream(dev))
+            _ptr(y), _ptr(apart), ntype, nslots, kk, nx, c, _stream(dev))
     _raise_on(err, "haydock_spmv_dot")
     spmv_dot.launches += 1
     return y, apart
@@ -357,14 +369,14 @@ def spmv_dot_half(hs, iz, cols, psi, half: str) -> None:
     (``half="gather"``) or only its MMAs (``"mma"``), on the same grid,
     tiles and epilogue, for timing its two halves apart.  Its outputs mean
     nothing and are dropped; it counts no launch of K1'."""
-    dev, ntype, nslots, kk, c, lib, table = _spmv_setup(
+    dev, ntype, nslots, kk, nx, c, lib, table = _spmv_setup(
         hs, iz, cols, psi, "spmv_dot_half", False)
     y = torch.empty((kk, NORB, c), dtype=torch.complex128, device=dev)
     apart = torch.empty((nrowblk(kk), c), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         err = lib.haydock_spmv_part(
             _HALVES[half], _ptr(table), _ptr(iz), _ptr(cols),
-            _ptr(psi), _ptr(y), _ptr(apart), ntype, nslots, kk, c,
+            _ptr(psi), _ptr(y), _ptr(apart), ntype, nslots, kk, nx, c,
             _stream(dev))
     _raise_on(err, "haydock_spmv_part")
 
@@ -394,7 +406,7 @@ def spmv_dot_pipelined(hs, iz, cols,
         return spmv_dot_pipelined_ref(hs, iz, cols, psi)
     if psi.data_ptr() % 16:
         raise ValueError("psi: cp.async needs a 16-byte aligned start")
-    dev, ntype, nslots, kk, c, lib, table = _spmv_setup(
+    dev, ntype, nslots, kk, nx, c, lib, table = _spmv_setup(
         hs, iz, cols, psi, "spmv_dot_pipelined", True)
     y = torch.empty((kk, NORB, c), dtype=torch.complex128, device=dev)
     a = torch.empty(c, dtype=torch.float64, device=dev)
@@ -403,7 +415,7 @@ def spmv_dot_pipelined(hs, iz, cols,
         err = lib.haydock_spmv_dot_pipelined(
             _ptr(table), _ptr(iz), _ptr(cols), _ptr(psi),
             _ptr(y), _ptr(a), _ptr(bpart), _ptr(_ticket(dev)), ntype,
-            nslots, kk, c, _stream(dev))
+            nslots, kk, nx, c, _stream(dev))
     _raise_on(err, "haydock_spmv_dot_pipelined")
     spmv_dot_pipelined.launches += 1
     return y, a
@@ -416,7 +428,8 @@ def update_norm(a, psi, v, pmn) -> Tuple[torch.Tensor, torch.Tensor]:
     """``pmn' = pmn + v - a psi[:kk]`` and per-row-block partials of
     ``|pmn'|^2``.
 
-    a (C,) float64, psi (kk+1, 9, C), v and pmn (kk, 9, C) complex128.
+    a (C,) float64, psi (nx+1, 9, C) with nx >= kk (its first kk rows
+    are read), v and pmn (kk, 9, C) complex128.
     Returns pmn' (kk, 9, C) and nrm (nrowblk, C) float64; ``nrm.sum(0)``
     is the chain's next ``b2``.  On CUDA the kernel writes pmn' IN PLACE
     over ``pmn`` and returns that tensor; the plain version returns a
@@ -427,7 +440,8 @@ def update_norm(a, psi, v, pmn) -> Tuple[torch.Tensor, torch.Tensor]:
     dev = psi.device
     kk, _, c = v.shape
     _check(a, "a", torch.float64, (c,), dev)
-    _check(psi, "psi", torch.complex128, (kk + 1, NORB, c), dev)
+    _check(psi, "psi", torch.complex128, (rows_read(psi, kk) + 1, NORB, c),
+           dev)
     _check(v, "v", torch.complex128, (kk, NORB, c), dev)
     _check(pmn, "pmn", torch.complex128, (kk, NORB, c), dev)
     if kk == 0 or c == 0:

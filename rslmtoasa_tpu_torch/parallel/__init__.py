@@ -1,1 +1,2 @@
-"""Engine dispatch of the recursions (single device; see ``dispatch``)."""
+"""Distribution over ranks (``mesh``, ``launch``) and the engine dispatch
+of the recursions (``dispatch``)."""

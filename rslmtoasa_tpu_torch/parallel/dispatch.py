@@ -1,9 +1,9 @@
-"""Dispatch of the scalar, block, Chebyshev and Kubo recursions on one
-device.
+"""Dispatch of the scalar, block, Chebyshev and Kubo recursions over the
+ranks and on each rank's device.
 
-Port of the single-device route of ``rslmtoasa_tpu/parallel/dispatch.py``
-(``lanczos_auto`` :687, ``block_lanczos_auto`` :295,
-``chebyshev_moments_auto`` :480): when the block problem decouples into
+Port of ``rslmtoasa_tpu/parallel/dispatch.py`` (``lanczos_auto`` :687,
+``block_lanczos_auto`` :295, ``chebyshev_moments_auto`` :480): when the
+block problem decouples into
 collinear spin sectors (``nsp`` 1, no spin-orbit coupling) the recursion
 runs once per 9-wide sector, otherwise once at the full width 18.  Each
 recursion (each sector for itself) runs through the active-set wavefront
@@ -13,8 +13,23 @@ and where the plan's work is under 0.7 of the full width's; else at the
 full width.  Either way it runs on ``device``, through K1'/K3' (scalar) or
 K4.  The Kubo moments (:func:`kubo_moments_auto`) always run at width 18
 over the whole cluster, as the JAX package's ``models/conductivity.py``
-runs them, in groups of start blocks that fit the device's memory.  The
-mesh and the TPU engines are not ported (ROADMAP queue 1, item 7).
+runs them, in groups of start blocks that fit the device's memory.
+
+With more than one rank (:func:`get_mesh`, a process group from
+:func:`.mesh.init_distributed`) the JAX package's mesh branches come
+first, and the wavefront only where no mesh is taken (``lanczos_auto``
+:700-713):
+
+* **row slabs** (:mod:`..ops.rowslab`) where the recursion state does not
+  fit one rank's budget (:func:`_rowshard_wanted`, :func:`_rowslab_wanted`);
+* else **chain sharding** (:mod:`.mesh`) where there are at least as many
+  chains as ranks (:func:`_mesh_for`): R or C padded to a multiple of the
+  world size with copies of chain 0, each rank's share recurred, the
+  results gathered and the padding dropped; the Kubo moments split their
+  start units over the ranks (``models/conductivity.py`` :397-421).
+
+Every route returns the full result on every rank.  The TPU engines (the
+multi-site conv engines, df64) are not ported.
 
 The tables come as host arrays (complex128, the JAX package's layouts),
 ``psi0`` as a tensor in the port's layout ``(kk+1, d, R d)``; results come
@@ -27,19 +42,97 @@ rows in front; the spin sectors cut them like any table.
 from __future__ import annotations
 
 import os
+from collections import Counter
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..ops import wavefront
+from ..ops import rowslab, wavefront
 from ..ops.block_lanczos import BlockOperator, block_lanczos
 from ..ops.chebyshev import chebyshev_moments
 from ..ops.kubo import VelocityOperator, kubo_moments, plan
 from ..ops.lanczos import HaydockOperator
 from ..utils.logger import g_logger
+from . import mesh as mesh_mod
 
 MAX_STARTS = 4096  # start rows beyond which the wavefront is not planned
+
+_mesh_cache = {"mesh": None, "checked": False}
+
+#: the routes over the ranks this process has taken, by name: ``slab_`` or
+#: ``chains_`` and the recursion (``scalar``, ``block``, ``cheb``), and
+#: ``units_kubo``; callers zero it to see where a run went
+ROUTES = ("slab_scalar", "chains_scalar", "slab_block", "chains_block",
+          "slab_cheb", "chains_cheb", "units_kubo")
+routes: Counter = Counter()
+
+
+def get_mesh() -> Optional[mesh_mod.Mesh]:
+    """The mesh of all ranks, or ``None`` with one rank, without a process
+    group, or with ``RSLMTO_NO_MESH`` set (the JAX package's
+    ``get_mesh``)."""
+    if _mesh_cache["checked"]:
+        return _mesh_cache["mesh"]
+    _mesh_cache["checked"] = True
+    if os.environ.get("RSLMTO_NO_MESH"):
+        return None
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() < 2:
+        return None
+    _mesh_cache["mesh"] = mesh_mod.make_mesh()
+    return _mesh_cache["mesh"]
+
+
+def _mesh_for(n_chains: int) -> Optional[mesh_mod.Mesh]:
+    """The mesh, or None where there are fewer chains than ranks (the
+    reference leaves surplus ranks idle there)."""
+    mesh = get_mesh()
+    return mesh if mesh is not None and n_chains >= mesh.world else None
+
+
+def rowshard_budget(device: torch.device) -> int:
+    """Bytes of recursion state one rank may hold: ``RSLMTO_ROWSHARD_BYTES``,
+    else half the card's memory (the state model below counts psi, pmn,
+    H psi and headroom; the other half holds the tables, K4's packed
+    tables, the Green functions and the allocator's slack), else 8 GiB on
+    the CPU (the JAX package's default, sized for a TPU v5e's 16 GiB)."""
+    env = os.environ.get("RSLMTO_ROWSHARD_BYTES")
+    if env:
+        return int(env)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory // 2
+    return 8 << 30
+
+
+def _state_bytes(kk: int, b: int, c: int) -> int:
+    """The JAX package's model of the recursion state: 6 complex128
+    (kk, b, c) buffers (psi, pmn, H psi and headroom)."""
+    return 6 * kk * b * c * 16
+
+
+def _rowshard_wanted(mesh, kk: int, b: int, c: int,
+                     device: torch.device) -> bool:
+    """The scalar recursion's gate (``dispatch.py`` :672): row slabs where
+    the state of all C chains exceeds one rank's budget."""
+    return (mesh is not None
+            and _state_bytes(kk, b, c) > rowshard_budget(device))
+
+
+def _rowslab_wanted(mesh, kk: int, d: int, device: torch.device) -> bool:
+    """The block and Chebyshev gate (``_ms_engine_for``'s ``grid_shard``,
+    ``dispatch.py`` :188-219): row slabs where one chain's state exceeds
+    one rank's budget and its share on ``world`` ranks fits."""
+    if mesh is None:
+        return False
+    one, budget = _state_bytes(kk, d, d), rowshard_budget(device)
+    if one > budget and one // mesh.world <= budget:
+        g_logger.info(f"row slabs: ~{one / 2**30:.1f} GiB per chain "
+                      f"exceeds one rank's {budget / 2**30:.1f} GiB; "
+                      f"splitting the rows over {mesh.world} ranks")
+        return True
+    return False
 
 
 def _wavefront_plan(cols, psi0: torch.Tensor, lld: int, hoh: bool,
@@ -73,9 +166,18 @@ def _wavefront_plan(cols, psi0: torch.Tensor, lld: int, hoh: bool,
 def lanczos_auto(hs, iz, cols, psi0: torch.Tensor, lld: int, *,
                  plain: bool = False, roll: Optional[bool] = None):
     """Scalar Haydock recursion of the C chains of ``psi0`` (kk+1, 9, C)
-    on its device, through the wavefront where :func:`_wavefront_plan`
-    engages (the JAX package's ``lanczos_auto`` :687 on one device).
-    Returns host (a, b2) of shape (lld, C)."""
+    on its device (the JAX package's ``lanczos_auto`` :687): over the
+    ranks on row slabs or chain-sharded, else through the wavefront where
+    :func:`_wavefront_plan` engages.  Returns host (a, b2) of shape
+    (lld, C)."""
+    kk1, b, c = psi0.shape
+    mesh = _mesh_for(c)
+    if mesh is not None:
+        slabs = _rowshard_wanted(mesh, kk1 - 1, b, c, psi0.device)
+        routes["slab_scalar" if slabs else "chains_scalar"] += 1
+        run = rowslab.lanczos_rowsharded if slabs else mesh_mod.lanczos_sharded
+        a, b2 = run(mesh, hs, iz, cols, psi0, lld, plain=plain, roll=roll)
+        return a.cpu().numpy(), b2.cpu().numpy()
     p = _wavefront_plan(cols, psi0, lld, False)
     if p is not None:
         return wavefront.lanczos_coefficients_wavefront(
@@ -143,7 +245,9 @@ def block_lanczos_auto(hs, lsham, iz, cols, psi0: torch.Tensor, lld: int, *,
     """Block recursion of the R start blocks of ``psi0`` on its device, per
     spin sector where the problem decouples, each through the wavefront
     where :func:`_wavefront_plan` engages.  Returns host (a_b, b2_b) of
-    shape (lld, R, 18, 18) (or d wide for a d-wide ``psi0``)."""
+    shape (lld, R, 18, 18) (or d wide for a d-wide ``psi0``).  Over the
+    ranks each sector runs on row slabs where :func:`_rowslab_wanted`, else
+    chain-sharded where :func:`_mesh_for` gives the mesh."""
     sec = _spin_sectors(hs, lsham, hso, enim, psi0)
     if sec is not None:
         outs = [block_lanczos_auto(h_, l_, iz, cols, p_, lld, hoh=hoh,
@@ -152,6 +256,22 @@ def block_lanczos_auto(hs, lsham, iz, cols, psi0: torch.Tensor, lld: int, *,
                 for (h_, l_, o_, e_, p_) in sec]
         return (_spin_assemble(outs[0][0], outs[1][0]),
                 _spin_assemble(outs[0][1], outs[1][1]))
+    tables = dict(hoh=hoh, hso=hso, enim=enim, iz_onsite=iz_onsite,
+                  nmax=nmax)
+    kk, d = psi0.shape[0] - 1, psi0.shape[1]
+    if _rowslab_wanted(get_mesh(), kk, d, psi0.device):
+        routes["slab_block"] += 1
+        a_b, b2_b = rowslab.block_lanczos_rowsharded(
+            get_mesh(), hs, lsham, iz, cols, psi0, lld, plain=plain,
+            **tables)
+        return a_b.cpu().numpy(), b2_b.cpu().numpy()
+    mesh = _mesh_for(psi0.shape[2] // d)
+    if mesh is not None:
+        routes["chains_block"] += 1
+        op = BlockOperator(hs, iz, cols, lsham, **tables).to(psi0.device)
+        a_b, b2_b = mesh_mod.block_lanczos_sharded(mesh, op, psi0, lld,
+                                                   plain=plain)
+        return a_b.cpu().numpy(), b2_b.cpu().numpy()
     p = _wavefront_plan(cols, psi0, lld, hoh)
     if p is not None:
         return wavefront.block_lanczos_wavefront(
@@ -180,8 +300,9 @@ def chebyshev_moments_auto(hs, lsham, iz, cols, psi0: torch.Tensor,
     """Chebyshev block moments of the start blocks of ``psi0`` on its
     device, per spin sector where the problem decouples, each through the
     wavefront where :func:`_wavefront_plan` engages.  Returns host mu
-    (2 lld + 2, R, 18, 18).  The divergence guard sees the assembled
-    18 x 18 blocks, as the reference sums the full block."""
+    (2 lld + 2, R, 18, 18).  The routes over the ranks are those of
+    :func:`block_lanczos_auto`.  The divergence guard sees the gathered,
+    assembled 18 x 18 blocks, as the reference sums the full block."""
     sec = _spin_sectors(hs, lsham, hso, enim, psi0)
     if sec is not None:
         outs = [chebyshev_moments_auto(h_, l_, iz, cols, p_, lld, a, b,
@@ -190,6 +311,20 @@ def chebyshev_moments_auto(hs, lsham, iz, cols, psi0: torch.Tensor,
                                        guard=False, plain=plain)
                 for (h_, l_, o_, e_, p_) in sec]
         mu = _spin_assemble(outs[0], outs[1])
+    elif _rowslab_wanted(get_mesh(), psi0.shape[0] - 1, psi0.shape[1],
+                         psi0.device):
+        routes["slab_cheb"] += 1
+        mu = rowslab.chebyshev_moments_rowsharded(
+            get_mesh(), hs, lsham, iz, cols, psi0, lld, a, b, hoh=hoh,
+            hso=hso, enim=enim, iz_onsite=iz_onsite, nmax=nmax,
+            plain=plain).cpu().numpy()
+    elif (mesh := _mesh_for(psi0.shape[2] // psi0.shape[1])) is not None:
+        routes["chains_cheb"] += 1
+        op = BlockOperator(hs, iz, cols, lsham, iz_onsite=iz_onsite,
+                           hoh=hoh, hso=hso, enim=enim,
+                           nmax=nmax).to(psi0.device)
+        mu = mesh_mod.chebyshev_moments_sharded(
+            mesh, op, psi0, lld, a, b, plain=plain).cpu().numpy()
     elif (p := _wavefront_plan(cols, psi0, lld, hoh,
                                "chebyshev")) is not None:
         mu = wavefront.chebyshev_moments_wavefront(
@@ -214,7 +349,8 @@ def kubo_moments_auto(hs, lsham, iz, cols, va, vb, psi0: torch.Tensor,
     (kk+1, 18, 18 R) on its device, as a tensor there.  The start blocks
     recur side by side in groups, and the left chain is stored in blocks,
     both sized by :func:`~..ops.kubo.plan`; with ``hoh`` the velocities
-    carry ``vo_a``/``vo_b`` (zeros if None)."""
+    carry ``vo_a``/``vo_b`` (zeros if None).  Over the ranks the start
+    units are split (:func:`_mesh_for`) and the moments gathered."""
     dev = psi0.device
     kk, r = psi0.shape[0] - 1, psi0.shape[2] // 18
     op = BlockOperator(hs, iz, cols, lsham, hoh=hoh, hso=hso,
@@ -226,11 +362,21 @@ def kubo_moments_auto(hs, lsham, iz, cols, va, vb, psi0: torch.Tensor,
         return VelocityOperator(v, iz, cols, vo if hoh else None).to(dev)
 
     va_op, vb_op = velocity(va, vo_a), velocity(vb, vo_b)
+    mesh = _mesh_for(r)
+    if mesh is not None:
+        # the type / random-vector partition over the ranks (the
+        # reference's get_mpi_variables(rank, ntype), calculation.f90:1002)
+        routes["units_kubo"] += 1
+        psi0, n_units = mesh_mod.shard_chains(mesh, psi0, 18)
+        r = psi0.shape[2] // 18
     per, size = plan(kk, r, n_moments, dev, plain)
     g_logger.info(f"Kubo moments: {r} start blocks in groups of {per}, "
                   f"left chain in blocks of {size} of {n_moments}")
-    return torch.cat([
+    mu = torch.cat([
         kubo_moments(op, va_op, vb_op,
                      psi0[:, :, 18 * s:18 * min(r, s + per)].contiguous(),
                      n_moments, a, b, size, plain=plain)
         for s in range(0, r, per)])
+    if mesh is not None:
+        mu = mesh_mod.gather_chains(mesh, mu, n_units, dim=0)
+    return mu

@@ -61,6 +61,9 @@ CPU = torch.device("cpu")
 BCC = dict(rc=8.0, ndim=2000, lld=8)
 NSTEP = 2
 WINDOW = (-1.5, 1.0)  # the Chebyshev window in which the moments converge
+# an overlap per l and spin for the atoms of the HoH cases (the preset's
+# atoms have obar = 0, so that eeo would be zero)
+OBAR = np.array([[-0.05, -0.055], [-0.04, -0.045], [-0.03, -0.035]])
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -240,11 +243,26 @@ def test_chebyshev_moments_match_jax(name):
 def test_local_axis_block_matches_jax():
     """``local_axis=True``: each rec atom recurs in its moment's frame, one
     atom at a time at the full width, in both packages."""
-    jsys = jax_bcc(nsp=2, **BCC)
+    _local_axis_parity(hoh=False)
+
+
+def test_local_axis_hoh_block_matches_jax():
+    """The same with HoH, the atoms given an overlap (``obar``) so that
+    ``eeo`` counts (ROADMAP item 17)."""
+    _local_axis_parity(hoh=True)
+
+
+def _local_axis_parity(hoh):
+    jsys = jax_bcc(nsp=2, hoh=hoh, **BCC)
     jsys.cfg.hamiltonian.local_axis = True
     jsys.atoms[0].potential.mom = np.array([0.3, -0.4, 0.866])
+    if hoh:
+        jsys.atoms[0].potential.obar[:] = OBAR
+        jsys.build_hamiltonian()
+        assert np.abs(jsys.ham.eeo).max() > 0.01
     cfg = synthetic_bcc_config(nsp=2, **BCC)
     cfg.hamiltonian.local_axis = True
+    cfg.hamiltonian.hoh = hoh
     psys = system_from_numpy(*system_to_numpy(jsys), CPU, cfg=cfg)
     a0, b20 = jsys.run_block()
     a, b2 = psys.run_block()

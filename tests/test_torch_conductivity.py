@@ -5,7 +5,8 @@ spin-orbit coupling) with HoH off and on, the B2 preset (two types: R = 2
 start blocks side by side, where the JAX package loops over types) and the
 bcc(001) slab of ``tests/test_torch_embedded.py`` (``calctype='S'``, four
 types), at ``cond_ll`` 8 and 200 energy points; ``random_vec`` with two
-random-phase vectors.
+random-phase vectors; the bcc preset at ``cond_ll`` 40 in the window
+(-1.5, 1.0), where its moments stay bounded (``bcc-ll40``).
 
 * the Kubo operator tables of all eight operator types, pol x/y/z, and the
   velocity tables: bit-equal to the JAX package's;
@@ -59,7 +60,10 @@ AB = (1.9, -0.2)  # the scaling of the JAX package's own Kubo tests
 OP_TYPES = ("charge", "spin", "orbital", "spin_accumulation",
             "orbital_accumulation", "spin_torque", "spin_soc_torque",
             "orbital_torque")
-CASES = ["bcc", "bcc-hoh", "random", "random-hoh", "B2", "S"]
+CASES = ["bcc", "bcc-hoh", "random", "random-hoh", "B2", "S", "bcc-ll40"]
+# the ll40 case: cond_ll 40 in a window where the moments stay bounded
+# (on the preset's own (-1.0, 0.5) they grow to 1.5e73 by n = 100)
+LL40, LL40_WINDOW = 40, (-1.5, 1.0)
 # the preset's atoms carry no overlap (obar = 0, so eeo = vo = 0): the HoH
 # cases give them this one, per l and spin, so that every HoH term counts
 OBAR = np.array([[-0.05, -0.055], [-0.04, -0.045], [-0.03, -0.035]])
@@ -94,6 +98,10 @@ def _systems(case):
     for sys_ in pair:
         _configure(sys_, "random_vec" if kind == "random" else "per_type",
                    hoh)
+        if "ll40" in rest:
+            sys_.cfg.control.cond_ll = LL40
+            sys_.cfg.energy.energy_min, sys_.cfg.energy.energy_max = \
+                LL40_WINDOW
     return pair
 
 
@@ -264,7 +272,8 @@ def test_moments_match_jax(runs):
     units = {"B2": 2, "S": 4}.get(runs["case"], 1)
     if runs["case"].startswith("random"):
         units = 2
-    assert got.shape == want.shape == (18, 18, NMOM, NMOM, units)
+    n = runs["psys"].cfg.control.cond_ll
+    assert got.shape == want.shape == (18, 18, n, n, units)
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= 1e-12 * scale
 
@@ -273,7 +282,8 @@ def test_k4_calls_per_run(runs):
     """One block of the whole left chain: ``launches(n, n)`` K4 calls (the
     plain version here) for all start blocks side by side."""
     hoh = runs["psys"].cfg.hamiltonian.hoh
-    assert runs["k4_calls"] == kubo.launches(NMOM, NMOM, hoh)
+    n = runs["psys"].cfg.control.cond_ll
+    assert runs["k4_calls"] == kubo.launches(n, n, hoh)
 
 
 def test_outputs_match_jax(runs):
@@ -299,10 +309,11 @@ def test_integrand_matches_jax(runs, tmp_path):
     em = JaxMesh.build(cfg.energy)
     a = (em.energy_max - em.energy_min) / 1.7
     b = (em.energy_max + em.energy_min) / 2.0
+    n = mu.shape[2]
     want = jcond.ConductivityCalculation(jsys, str(tmp_path)) \
-        .conductivity_tensor(mu, em, a, b, NMOM)
+        .conductivity_tensor(mu, em, a, b, n)
     got = pcond.ConductivityCalculation(psys, str(tmp_path)) \
-        .conductivity_tensor(torch.from_numpy(mu), em, a, b, NMOM)
+        .conductivity_tensor(torch.from_numpy(mu), em, a, b, n)
     assert got.shape == want.shape == (18, em.npts, mu.shape[4])
     assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
 

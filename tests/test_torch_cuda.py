@@ -2,7 +2,9 @@
 versions, and the Green functions, the exchange pair recursion, the Kubo
 moments and the orbital moment's trace against the same torch code on the
 CPU, and the active-set wavefront through the kernels against its plain
-version and the full-width route, on the card.
+version and the full-width route, on the card; the kernels on row-slab
+tables, two ranks sharing the card on row slabs, one NCCL rank, and two
+NCCL ranks on row slabs and chains where there are two cards.
 
 Marked ``gpu``: without a CUDA card every test skips (the check is made
 in the fixture, never at import).  On a machine with one, run
@@ -709,3 +711,142 @@ def test_impurity_wavefront_through_k4(card, hoh, monkeypatch):
     for g, w, d in zip(got, want, dense):
         assert np.abs(g - w).max() <= 1e-11
         assert np.abs(g - d).max() <= 1e-11
+
+
+# ----------------------------------------------------------------------
+# row slabs and ranks on the card
+def _slab_tables(sys_, rank, card):
+    """Rank ``rank``'s slab of two of ``sys_``'s tables (its own rows,
+    then its halo, then the zero sentinel)."""
+    from types import SimpleNamespace
+
+    from rslmtoasa_tpu_torch.ops import rowslab
+
+    return rowslab.Slab(SimpleNamespace(rank=rank, world=2), sys_.ham.cols,
+                        card)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_kernels_on_slab_tables(block_system, card, rank):
+    """K1', K3' and K4 (d = 18 and 9, both HoH launches) computing a slab's
+    own rows while reading its halo rows (``nx`` > kk) against their plain
+    versions: 1e-12 of scale."""
+    from rslmtoasa_tpu_torch.ops import rowslab
+
+    hb = block_system.ham
+    slab = _slab_tables(block_system, rank, card)
+    n, nx = slab.n_own, slab.nx
+    assert 0 < n < nx
+    hs9 = torch.as_tensor(np.ascontiguousarray(hb.ee[:, :, :9, :9]),
+                          device=card)
+    iz = slab.rows(hb.iz)
+    x = _psi(nx, 9, 41, card)
+    y, ap = hk.spmv_dot(hs9, iz, slab.cols, x)
+    y0, ap0 = hk.spmv_dot_ref(hs9, iz, slab.cols, x)
+    v = _psi(n, 9, 42, card)[:n].contiguous()
+    pmn = _psi(n, 9, 43, card)[:n].contiguous()
+    a = torch.linspace(-1.0, 1.0, 9, dtype=torch.float64, device=card)
+    out0, nrm0 = hk.update_norm_ref(a, x, v, pmn)
+    out, nrm = hk.update_norm(a, x, v, pmn.clone())
+    torch.cuda.synchronize()
+    assert y.shape == (n, 9, 9) and ap.shape == (hk.nrowblk(n), 9)
+    for got, want in ((y, y0), (ap, ap0), (out, out0), (nrm, nrm0)):
+        assert (got - want).abs().max() <= BAR * want.abs().max()
+    for d in (18, 9):
+        sl = slice(0, d)
+        for hoh in (False, True):
+            op = rowslab.slab_operator(
+                slab, hb.ee[..., sl, sl], hb.lsham[..., sl, sl], hb.iz,
+                hoh=hoh, hso=hb.eeo[..., sl, sl] if hoh else None,
+                enim=hb.enim[..., sl, sl] if hoh else None)
+            xb = _blocks(nx, d, 1, 44, card)
+            hx = slab.extend(op.hs_apply(xb)[:n]) if hoh else None
+            if hoh:
+                hx[n:nx] = _blocks(nx - n - 1, d, 1, 45, card)[:nx - n]
+            got = op(xb, gram=True, hpsi=hx)
+            want = op(xb, gram=True, plain=True, hpsi=hx)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert (g - w).abs().max() <= BAR * w.abs().max()
+
+
+def test_slab_recursions_two_ranks_share_the_card(block_system, card):
+    """Two ranks on the one card over gloo: the block (HoH off and on),
+    Chebyshev and scalar recursions on row slabs through the kernels
+    against each rank's single-rank full-width kernel route: 1e-11."""
+    from rslmtoasa_tpu_torch.parallel import launch
+
+    hb = block_system.ham
+    base = dict(hs=hb.ee, lsham=hb.lsham, iz=hb.iz, cols=hb.cols)
+    res = launch.run(
+        "rslmtoasa_tpu_torch.parallel.stages:slab_cases", 2, device="cuda",
+        share_cards=True, cases={
+            "bcc": dict(kinds=("block", "cheb", "scalar")),
+            "hoh": dict(hoh=True, hso=hb.eeo, enim=hb.enim,
+                        kinds=("block",))},
+        starts=[0], lld=6, **base)
+    for case, out in res.items():
+        for kind in out["wall"]:
+            got, want = out[kind], out[kind + "_1"]
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                assert np.abs(g - w).max() <= 1e-11, (case, kind)
+    assert res["hoh"]["launches"]["block"]["block_step"] == 2 * 5
+    assert res["bcc"]["launches"]["scalar"]["spmv_dot"] == 5
+
+
+def test_one_nccl_rank(block_system, card):
+    """World size 1 over NCCL: the chain-sharded block recursion (its
+    CUDA-tensor all-gather) gives the single rank's bits."""
+    from rslmtoasa_tpu_torch.parallel import launch
+
+    hb = block_system.ham
+    res = launch.run("rslmtoasa_tpu_torch.parallel.stages:chain_block", 1,
+                     device="cuda", share_cards=False, hs=hb.ee,
+                     lsham=hb.lsham, iz=hb.iz, cols=hb.cols, starts=[0, 5],
+                     lld=6)
+    assert res["backend"] == "nccl" and res["world"] == 1
+    for g, w in zip(res["block"], res["block_1"]):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def two_cards(card):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (one NCCL rank on each)")
+    return card
+
+
+def test_slabs_and_chains_over_nccl_one_card_a_rank(block_system,
+                                                    two_cards):
+    """Two NCCL ranks, one card each: the block (HoH off and on),
+    Chebyshev and scalar recursions on row slabs (their halo exchanges
+    batched point to point) against each rank's single-rank full width
+    (1e-11), the all-gather and halo SpMVs against the whole table's
+    (1e-12), and the chain-sharded block recursion against one rank
+    (1e-12)."""
+    from rslmtoasa_tpu_torch.parallel import launch
+
+    hb = block_system.ham
+    base = dict(hs=hb.ee, lsham=hb.lsham, iz=hb.iz, cols=hb.cols, lld=6)
+    slabs, spmv, chains = launch.run(
+        "rslmtoasa_tpu_torch.parallel.stages:many", 2, device="cuda",
+        share_cards=False, calls=[
+            ("slab_cases", dict(cases={
+                "bcc": dict(kinds=("block", "cheb", "scalar")),
+                "hoh": dict(hoh=True, hso=hb.eeo, enim=hb.enim,
+                            kinds=("block",))}, starts=[0], **base)),
+            ("spmv_suite", {}),
+            ("chain_block", dict(starts=[0, 5], **base))])
+    for case, out in slabs.items():
+        for kind in out["wall"]:
+            got, want = out[kind], out[kind + "_1"]
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                assert np.abs(g - w).max() <= 1e-11, (case, kind)
+            assert out["exchanges"][kind] > 0
+    for k in ("step", "halo"):
+        assert np.abs(spmv[k] - spmv["dense"]).max() <= 1e-12, k
+    assert chains["backend"] == "nccl" and chains["world"] == 2
+    for g, w in zip(chains["block"], chains["block_1"]):
+        assert np.abs(g - w).max() <= 1e-12

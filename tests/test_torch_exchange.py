@@ -7,7 +7,8 @@ chains, 16 in the JAX package) and the preset's trio; the Chebyshev runs
 take the window (-1.5, 1.0).  Cases: block and Chebyshev, HoH off and on,
 the collinear block run (``nsp=1``: two d = 9 spin sectors; the onsite pair
 and the nn) and the bcc(001) slab of ``tests/test_torch_embedded.py``
-(``calctype='S'``, pairs (1, 1) and (1, 2)).
+(``calctype='S'``, pairs (1, 1) and (1, 2)) on the block and Chebyshev
+recursions and with HoH (its atoms given an overlap).
 
 * start blocks equal in the mapped layout;
 * ``a_b``/``b_b`` within 1e-10 and ``mu`` within 1e-10 of scale, the dead
@@ -71,7 +72,9 @@ RC, LLD, NE, NSHELL = 8.0, 8, 200, 3
 WINDOW = (-1.5, 1.0)
 ULP = 2.0**-52
 CASES = ["block", "block-hoh", "chebyshev", "chebyshev-hoh", "block-nsp1",
-         "S-block"]
+         "S-block", "S-chebyshev", "S-block-hoh"]
+# the slab's HoH case gives its atoms an overlap, so that eeo counts
+OBAR = np.array([[-0.05, -0.055], [-0.04, -0.045], [-0.03, -0.035]])
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -99,9 +102,20 @@ def _systems(case):
     """(JAX system, port system, 1-based pairs) of a case."""
     kind, *rest = case.split("-")
     if kind == "S":
-        cfg = slab_config("S", 2, False)
+        hoh = "hoh" in rest
+        cfg = slab_config("S", 2, hoh)
         jsys = jax_slab(cfg)
-        psys = presets.build_synthetic_embedded(cfg, device="cpu")
+        psys = presets.build_synthetic_embedded(cfg, hoh, device="cpu")
+        for sys_ in (jsys, psys):
+            sys_.cfg.control.recur = rest[0]
+            if rest[0] == "chebyshev":
+                sys_.cfg.energy.energy_min, sys_.cfg.energy.energy_max = \
+                    WINDOW
+            if hoh:
+                for at in sys_.atoms:
+                    at.potential.obar[:] = OBAR
+                sys_.build_hamiltonian()
+                assert np.abs(sys_.ham.eeo).max() > 0.01
         return jsys, psys, np.array([[1, 1], [1, 2]])
     nsp1 = "nsp1" in rest
     jsys, psys = _bcc_pair(nsp=1 if nsp1 else 2, hoh="hoh" in rest)

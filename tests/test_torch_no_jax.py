@@ -37,7 +37,12 @@ assert {"rslmtoasa_tpu_torch.geometry.surface",
         "rslmtoasa_tpu_torch.physics.atomsphere",
         "rslmtoasa_tpu_torch.physics.radial",
         "rslmtoasa_tpu_torch.physics.xc_lda",
-        "rslmtoasa_tpu_torch.utils.artifacts"} <= set(names)
+        "rslmtoasa_tpu_torch.utils.artifacts",
+        "rslmtoasa_tpu_torch.parallel.mesh",
+        "rslmtoasa_tpu_torch.parallel.launch",
+        "rslmtoasa_tpu_torch.parallel.stages",
+        "rslmtoasa_tpu_torch.ops.rowslab",
+        "rslmtoasa_tpu_torch.dryrun"} <= set(names)
 
 from rslmtoasa_tpu_torch.ops.lanczos import (
     HaydockOperator, scalar_start_vectors)

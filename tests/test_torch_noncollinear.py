@@ -1,5 +1,5 @@
 """The noncollinear SCF (``nsp`` 3 and 4) of the port against the JAX
-package's (CPU).
+package's (CPU), and the collinear Chebyshev SCF with HoH (``nsp=2``).
 
 Preset: the bcc preset (``rc=8, ndim=2000, lld=8``, as
 ``tests/test_torch_block.py``) with its start moment tilted to
@@ -8,6 +8,8 @@ Preset: the bcc preset (``rc=8, ndim=2000, lld=8``, as
 spin-orbit coupling.  Block and Chebyshev recursions, HoH off and on (the
 HoH atoms given an overlap, so that ``eeo`` counts; the Chebyshev moments
 then need the window (-2.0, 1.5), and take (-1.5, 1.0) without HoH).
+``nsp2-chebyshev-hoh`` is the same Chebyshev HoH run at ``nsp=2``, its
+moment not tilted (ROADMAP item 17).
 
 Two SCF iterations in each package.  The first iteration is held at the
 North star's bars: etot within 1e-9, fermi, ql and mom within 1e-10.  The
@@ -49,7 +51,8 @@ BARS = dict(etot=1e-9, fermi=1e-10, ql=1e-10, mom=1e-10)
 TILT = np.array([0.3, -0.4, 0.866])
 OBAR = np.array([[-0.05, -0.055], [-0.04, -0.045], [-0.03, -0.035]])
 NC_CASES = [f"nsp{nsp}-{recur}{hoh}" for nsp in (3, 4)
-            for recur in ("block", "chebyshev") for hoh in ("", "-hoh")]
+            for recur in ("block", "chebyshev") for hoh in ("", "-hoh")
+            ] + ["nsp2-chebyshev-hoh"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -70,7 +73,8 @@ def _make(build, name, **kw):
         sys_.cfg.energy.energy_min, sys_.cfg.energy.energy_max = (
             HOH_WINDOW if hoh else WINDOW)
     for at in sys_.atoms:
-        at.potential.mom = TILT.copy()
+        if int(nsp[3:]) >= 3:
+            at.potential.mom = TILT.copy()
         if hoh:
             at.potential.obar[:] = OBAR
     return sys_
@@ -132,6 +136,7 @@ def nc_runs(request, tmp_path_factory, solver_calls):
     scf.mix.__dict__.update(snap[2])
     scf.run(nstep=1)
     out["carried"] = _scalars(scf, carried, calls["torch"])
+    out["tilted"] = not name.startswith("nsp2")
     return out
 
 
@@ -154,14 +159,16 @@ def _assert_within_bars(got, ref, keys):
 def test_nc_first_iteration_matches_jax(nc_runs):
     got, ref = nc_runs["torch"]["first"], nc_runs["jax"]["first"]
     assert np.isfinite(got["etot"]) and got["etot"] < -2000.0
-    # the moment keeps a direction off z
-    assert abs(got["mom"][0]) > 1e-3 and abs(got["mom"][2]) < 1.0
+    # a tilted moment keeps a direction off z
+    assert not nc_runs["tilted"] or (abs(got["mom"][0]) > 1e-3
+                                     and abs(got["mom"][2]) < 1.0)
     _assert_within_bars(got, ref, BARS)
 
 
 def test_nc_second_iteration_from_one_state(nc_runs):
     got, ref = nc_runs["carried"], nc_runs["jax"]["second"]
-    assert abs(got["mom"][0]) > 1e-3 and abs(got["mom"][2]) < 1.0
+    assert not nc_runs["tilted"] or (abs(got["mom"][0]) > 1e-3
+                                     and abs(got["mom"][2]) < 1.0)
     _assert_within_bars(got, ref, list(BARS) + ["delta"])
 
 
