@@ -14,9 +14,15 @@
 //                      pallas_conv.py _spmv_kernel_roll /
 //                      conv_spmv_df64_pallas_roll, whose dot leaves the
 //                      kernel already summed over planes)
-//   haydock_update_norm  K3': pmn' = pmn + v - a psi and per-row-block
-//                      partials of |pmn'|^2 (replaces pallas_conv.py
-//                      _update_kernel / lanczos_update_pallas)
+//   haydock_update_norm  K3': one step of the recursion with its
+//                      normalisation deferred, u' = v / b - (a / b) u -
+//                      (b / b_prev) w written over w, the step's a, and
+//                      |u'|^2 finished in the launch, with its row-block
+//                      partials; or the generalised update alpha v +
+//                      beta u + gamma w (replaces pallas_conv.py
+//                      _update_kernel / lanczos_update_pallas, which is
+//                      (1, -a, 1) of it, and the normalisation the JAX
+//                      loop runs after it)
 //
 // Layouts (all C-contiguous):
 //   tab   (ntype, nquad, 3, 32) double2      realified type table, packed
@@ -26,7 +32,8 @@
 //   psi   (nx+1, 9, C) complex128            row nx is all zero; nx >= kk
 //                                            (a row slab: kk own rows,
 //                                            then its halo rows)
-//   y, v, pmn (kk, 9, C) complex128
+//   y, v  (kk, 9, C) complex128
+//   u, w  (>= kk rows, 9, C) complex128       K3' reads the first kk rows
 //   partials (nrowblk, C) float64, nrowblk = ceil(kk / ROWS_PER_BLOCK)
 //   a     (C,) float64                       finished dot of K2'
 //
@@ -77,17 +84,27 @@
 // load and multiply halves overlap little, and each runs about 1.6 times
 // its floor.  At C = 9 (0.16 ms) a block holds 18 warps and the 844 tiles
 // come to 6.4 per SM, so latency and the last round's tail weigh most.
-// update_norm reads three and writes one complex array per element: it is
-// bound by memory bandwidth.
+// K3' reads three and writes one complex array per element: it is bound
+// by memory bandwidth.  It keeps the chain unnormalised, u_n = b_n psi_n,
+// so the step needs no pass after it: the recursion
+//   u_{n+1} = y_n / b_n - (a_n / b_n) u_n - (b_n / b_{n-1}) u_{n-1},
+//   y_n = H u_n,  a_n = Re<u_n|y_n> / b_n^2,  b_{n+1}^2 = |u_{n+1}|^2
+// reads y_n, u_n and u_{n-1}, writes u_{n+1} over u_{n-1}, and takes the
+// chain's scalars from device memory (the SpMVs are linear, so their dot
+// on u_n is the raw Re<u_n|y_n>).  Its grid is sized from the element
+// count and the SM count (ops/haydock_kernels.py update_plan), so that a
+// 512-row prefix fills the card as a 27 000-row cluster does.
 //
 // Reductions: the four lanes that hold one pair's outputs add their parts
 // of Re<psi|y> with two xor shuffles; the block adds each chain's 32 rows
-// in row order.  K1' and K3' stop there and the caller folds the row
-// blocks.  K2' then finishes the sum over row blocks itself: each block
+// in row order.  K1' stops there and the caller folds the row blocks.
+// K2' and K3' finish the sum over row blocks themselves: each block
 // fences and takes a ticket from an int counter; the block that takes the
-// last ticket adds the partials in index order (equal contiguous runs, then
-// the runs in order), writes a, and sets the counter back to 0 for the
-// next launch.  There are no floating-point atomics, so reruns are
+// last ticket adds the partials in index order (K2': equal contiguous
+// runs, then the runs in order; K3': runs of ceil(sqrt(nrowblk)) row
+// blocks, then the runs in order, which haydock_kernels.fold_norm
+// repeats), writes the sum, and sets the counter back to 0 for the next
+// launch.  There are no floating-point atomics, so reruns are
 // bit-identical.
 
 #include <cuda_runtime.h>
@@ -102,8 +119,11 @@ constexpr int SPMV_CHAIN_TILE = 16;  // chains per tile at most
 constexpr int K1_MT = 1;  // m16 tiles per warp of K1' (1024 threads a block)
 constexpr int K2_MT = 2;  // m16 tiles per warp of K2' (512 threads a block)
 constexpr int PIPE_STAGES = 3;
-constexpr int ROW_THREADS = 8;  // update_norm
-constexpr int CHAIN_TILE = 32;  // update_norm
+constexpr int UPD_PIECE = 2;    // update_norm: rows a piece
+constexpr int UPD_PIECE_ELEMS = NORB * UPD_PIECE;   // (row, orbital) pairs
+constexpr int UPD_PIECES = ROWS_PER_BLOCK / UPD_PIECE;  // pieces a row block
+constexpr int UPD_THREADS = 288;  // update_norm: threads a block at most
+constexpr int UPD_BATCH = 2;      // update_norm: elements loaded at once
 
 __device__ __forceinline__ void dmma_m16n8k8(double (&d)[4], double a0,
                                              double a1, double a2, double a3,
@@ -461,54 +481,176 @@ __global__ void __launch_bounds__(K2_THREADS, 1)
   if (tid == 0) *counter = 0;  // ready for the next launch
 }
 
-// Fixed-order sum of the ROW_THREADS lanes' partials of one chain.
-// Every thread of the CTA must call it (it holds a barrier).
-__device__ __forceinline__ void store_block_partial(double part,
-                                                    double* red,
-                                                    double* out, int blk,
-                                                    int c, int C) {
-  red[threadIdx.y * blockDim.x + threadIdx.x] = part;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    double s = 0.0;
-    for (int r = 0; r < blockDim.y; ++r) s += red[r * blockDim.x + threadIdx.x];
-    out[(size_t)blk * C + c] = s;
-  }
-}
+// K3': one step of the recursion with its normalisation deferred, or the
+// generalised update, in one launch:
+//
+//   out = alpha v + beta u + gamma w   per chain, written over w
+//
+// with (alpha, beta, gamma) given (deferred = 0), or (deferred = 1) made
+// from the chain's raw dot r = Re<u|v>, b2 = |u|^2 and b2p, the norm
+// before it:  a = r / b2,  alpha = 1 / sqrt(b2),  beta = -a / sqrt(b2),
+// gamma = -sqrt(b2) / sqrt(b2p), and a written to a_out.  Then |out|^2:
+// per-piece partials, per-row-block partials (part) and, from the block
+// that takes the last ticket, their fixed-order sum (b2_out).
+//
+// Mapping: the (row, orbital, chain) elements are contiguous with the
+// chain fastest.  A block takes `rows` rows (a whole number of pieces of
+// UPD_PIECE rows, at most one row block) of one chain tile of ct chains
+// with KR threads per chain, thread t = k ct + q on chain c0 + q: so
+// consecutive lanes read consecutive 16-byte words, and a thread's
+// elements, (row, orbital) pairs k, k + KR, ... of each piece, share its
+// chain.  A thread's sum over a piece's elements in order, then the KR
+// threads' sums in k order, give the piece partial; the 16 pieces in
+// order give the row-block partial.  That order does not depend on
+// `rows`, so a row block gives the same bits whatever the grid (a row
+// slab's partials are the single rank's).  A block of fewer rows than a
+// row block stores its piece partials; the last of its row block's
+// blocks (a ticket per row block) adds the 16 in order.  The sum over
+// row blocks is ticketed the same way, a level at a time: the last row
+// block of each run of runlen adds the run, the last run adds the runs,
+// so the launch's tail is one run's and one chain's loads.
+template <int KR>
+__global__ void __launch_bounds__(UPD_THREADS) update_norm_kernel(
+    int deferred, const double* __restrict__ s0,
+    const double* __restrict__ s1, const double* __restrict__ s2,
+    const double2* __restrict__ v, const double2* __restrict__ u,
+    double2* __restrict__ w, double* __restrict__ part,
+    double* __restrict__ pieces, double* __restrict__ runs,
+    double* __restrict__ a_out, double* __restrict__ b2_out,
+    int* __restrict__ counter, int kk, int C, int ct, int npc,
+    int runlen) {
+  constexpr int EPP = UPD_PIECE_ELEMS / KR;  // a thread's elements a piece
+  extern __shared__ double red[];            // [npc][KR ct]
+  __shared__ int last;
+  const int tid = threadIdx.x, nthr = KR * ct;
+  const int nct = (C + ct - 1) / ct, bpr = UPD_PIECES / npc;
+  const int ctile = blockIdx.x % nct, rest = blockIdx.x / nct;
+  const int sub = rest % bpr, rb = rest / bpr;
+  const int q = tid % ct, k = tid / ct;
+  const int c0 = ctile * ct, c = c0 + q;
+  const bool live = c < C;
+  const int piece0 = rb * UPD_PIECES + sub * npc;
+  const size_t ro_end = (size_t)kk * NORB;
 
-// pmn and out may be the same buffer: each element is read and then
-// written by the same thread.
-__global__ void update_norm_kernel(const double* __restrict__ a,
-                                   const double2* __restrict__ psi,
-                                   const double2* __restrict__ v,
-                                   const double2* pmn, double2* out,
-                                   double* __restrict__ nrm, int kk,
-                                   int C) {
-  __shared__ double red[CHAIN_TILE * ROW_THREADS];
-  const int blk = blockIdx.x;
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  double part = 0.0;
-  if (c < C) {
-    const double ac = a[c];
-    for (int r = threadIdx.y; r < ROWS_PER_BLOCK; r += blockDim.y) {
-      const int row = blk * ROWS_PER_BLOCK + r;
-      if (row >= kk) break;
+  double al = 0.0, be = 0.0, ga = 0.0;
+  if (live) {
+    if (deferred) {
+      const double b2 = s1[c], an = s0[c] / b2, sb = sqrt(b2);
+      al = 1.0 / sb;
+      be = -(an / sb);
+      ga = -(sb / sqrt(s2[c]));
+      if (blockIdx.x < nct && k == 0) a_out[c] = an;
+    } else {
+      al = s0[c];
+      be = s1[c];
+      ga = s2[c];
+    }
+  }
+
+  // UPD_BATCH elements' loads in flight, then their updates
+  const int nel = npc * EPP;
+  double acc = 0.0;
+  for (int e0 = 0; e0 < nel; e0 += UPD_BATCH) {
+    double2 xv[UPD_BATCH], xu[UPD_BATCH], xw[UPD_BATCH];
+    size_t idx[UPD_BATCH];
+    bool ok[UPD_BATCH];
 #pragma unroll
-      for (int o = 0; o < NORB; ++o) {
-        const size_t i = ((size_t)row * NORB + o) * C + c;
-        const double2 p = psi[i];
-        const double2 w = v[i];
-        const double2 q = pmn[i];
-        double2 n;
-        n.x = (q.x + w.x) - ac * p.x;
-        n.y = (q.y + w.y) - ac * p.y;
-        out[i] = n;
-        part = fma(n.x, n.x, part);
-        part = fma(n.y, n.y, part);
+    for (int b = 0; b < UPD_BATCH; ++b) {
+      const int e = e0 + b, j = e / EPP, m = e - j * EPP;
+      const size_t ro =
+          (size_t)(piece0 + j) * UPD_PIECE_ELEMS + k + (size_t)m * KR;
+      ok[b] = live && e < nel && ro < ro_end;
+      idx[b] = ro * C + c;
+      if (ok[b]) {
+        xv[b] = v[idx[b]];
+        xu[b] = u[idx[b]];
+        xw[b] = w[idx[b]];
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < UPD_BATCH; ++b) {
+      const int e = e0 + b;
+      if (e >= nel) break;
+      if (ok[b]) {  // fma written out: the same bits from any build
+        double2 o;
+        o.x = fma(ga, xw[b].x, fma(be, xu[b].x, al * xv[b].x));
+        o.y = fma(ga, xw[b].y, fma(be, xu[b].y, al * xv[b].y));
+        w[idx[b]] = o;
+        acc = fma(o.x, o.x, acc);
+        acc = fma(o.y, o.y, acc);
+      }
+      if (e % EPP == EPP - 1) {  // the piece's last element
+        red[(e / EPP) * nthr + tid] = acc;
+        acc = 0.0;
       }
     }
   }
-  store_block_partial(part, red, nrm, blk, c, C);
+  __syncthreads();
+  // piece partials: each chain's KR thread sums in k order, into slot k = 0
+  for (int it = tid; it < npc * ct; it += nthr) {
+    const int j = it / ct, qq = it - j * ct;
+    double s = 0.0;
+    for (int p = 0; p < KR; ++p) s += red[j * nthr + p * ct + qq];
+    red[j * nthr + qq] = s;
+  }
+  __syncthreads();
+  if (npc == UPD_PIECES) {  // the whole row block
+    if (k == 0 && live) {
+      double s = 0.0;
+      for (int j = 0; j < UPD_PIECES; ++j) s += red[j * nthr + q];
+      part[(size_t)rb * C + c] = s;
+    }
+  } else {
+    for (int it = tid; it < npc * ct; it += nthr) {
+      const int j = it / ct, qq = it - j * ct;
+      if (c0 + qq < C)
+        pieces[(size_t)(piece0 + j) * C + c0 + qq] = red[j * nthr + qq];
+    }
+    __threadfence();
+    __syncthreads();
+    int* rbc = counter + 1 + (size_t)rb * nct + ctile;
+    if (tid == 0) last = atomicAdd(rbc, 1) == bpr - 1;
+    __syncthreads();
+    if (!last) return;
+    if (k == 0 && live) {
+      double s = 0.0;
+      for (int j = 0; j < UPD_PIECES; ++j)
+        s += __ldcg(pieces + (size_t)(rb * UPD_PIECES + j) * C + c);
+      part[(size_t)rb * C + c] = s;
+    }
+    if (tid == 0) *rbc = 0;  // ready for the next launch
+  }
+
+  // the last row block of a run adds the run's row blocks in order; the
+  // last run adds the runs in order (haydock_kernels.fold_norm)
+  const int nrb = (kk + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+  const int nrun = (nrb + runlen - 1) / runlen, run = rb / runlen;
+  const int j0 = run * runlen, j1 = min(nrb, j0 + runlen);
+  int* rnc = counter + 1 + (size_t)(nrb + run) * nct + ctile;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(rnc, 1) == j1 - j0 - 1;
+  __syncthreads();
+  if (!last) return;
+  if (k == 0 && live) {
+    double s = 0.0;
+#pragma unroll 8
+    for (int j = j0; j < j1; ++j) s += __ldcg(part + (size_t)j * C + c);
+    runs[(size_t)run * C + c] = s;
+  }
+  if (tid == 0) *rnc = 0;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counter, 1) == nrun * nct - 1;
+  __syncthreads();
+  if (!last) return;
+  for (int cc = tid; cc < C; cc += nthr) {
+    double s = 0.0;
+#pragma unroll 8
+    for (int r = 0; r < nrun; ++r) s += __ldcg(runs + (size_t)r * C + cc);
+    b2_out[cc] = s;
+  }
+  if (tid == 0) *counter = 0;  // ready for the next launch
 }
 
 // Persistent grid of an SpMV: as many blocks as fit on the card at once,
@@ -610,16 +752,52 @@ long long haydock_spmv_smem(int pipelined, int ntype, int nslots, int C) {
   return (long long)spmv_smem(pipelined != 0, ntype, nslots, C);
 }
 
-int haydock_update_norm(const void* a, const void* psi, const void* v,
-                        const void* pmn, void* out, void* nrm, int kk, int C,
+// K3' (see update_norm_kernel).  s0, s1, s2 (C,) float64: (alpha, beta,
+// gamma), or with deferred (r, b2, b2p) and a_out (C,) written.  v (kk,
+// 9, C), u and w (at least kk rows) complex128; w is overwritten.  part
+// (nrowblk, C), pieces (nrowblk * 16, C) where rows < ROWS_PER_BLOCK,
+// runs (ceil(nrowblk / runlen), C) float64 and b2_out (C,).  counter:
+// 1 + (nrowblk + nrun) * ceil(C / ct) ints, nrun = ceil(nrowblk /
+// runlen), ZERO at launch, left zero.  A block
+// takes `rows` rows (2, 4, 8, 16 or 32) of ct chains with kr threads
+// per chain (kr 1, 2 or 3, kr ct <= UPD_THREADS).
+int haydock_update_norm(int deferred, const void* s0, const void* s1,
+                        const void* s2, const void* v, const void* u,
+                        void* w, void* part, void* pieces, void* runs,
+                        void* a_out, void* b2_out, void* counter, int kk,
+                        int C, int ct, int kr, int rows, int runlen,
                         void* stream) {
-  const int tc = C < CHAIN_TILE ? C : CHAIN_TILE;
-  const dim3 block(tc, ROW_THREADS);
-  const dim3 grid((kk + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK,
-                  (C + tc - 1) / tc);
-  update_norm_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const double*)a, (const double2*)psi, (const double2*)v,
-      (const double2*)pmn, (double2*)out, (double*)nrm, kk, C);
+  if (kk <= 0 || C <= 0 || ct <= 0 || ct > C || runlen <= 0 ||
+      rows < UPD_PIECE || rows > ROWS_PER_BLOCK ||
+      ROWS_PER_BLOCK % rows != 0 || kr * ct > UPD_THREADS ||
+      (deferred && a_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int npc = rows / UPD_PIECE;
+  const int nrb = (kk + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+  const int nct = (C + ct - 1) / ct;
+  const dim3 grid((unsigned)nrb * (UPD_PIECES / npc) * nct);
+  const int threads = kr * ct;
+  const size_t smem = (size_t)npc * threads * sizeof(double);
+  cudaStream_t st = (cudaStream_t)stream;
+#define UPD_ARGS                                                           \
+  deferred, (const double*)s0, (const double*)s1, (const double*)s2,      \
+      (const double2*)v, (const double2*)u, (double2*)w, (double*)part,   \
+      (double*)pieces, (double*)runs, (double*)a_out, (double*)b2_out,    \
+      (int*)counter, kk, C, ct, npc, runlen
+  switch (kr) {
+    case 1:
+      update_norm_kernel<1><<<grid, threads, smem, st>>>(UPD_ARGS);
+      break;
+    case 2:
+      update_norm_kernel<2><<<grid, threads, smem, st>>>(UPD_ARGS);
+      break;
+    case 3:
+      update_norm_kernel<3><<<grid, threads, smem, st>>>(UPD_ARGS);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef UPD_ARGS
   return (int)cudaGetLastError();
 }
 

@@ -12,9 +12,19 @@ their build.
   that of K1' bit for bit.  Replaces ``pallas_conv.py``
   ``_spmv_kernel_roll`` (via ``conv_spmv_df64_pallas_roll``), whose dot
   also leaves the kernel summed over the whole cluster.
-* :func:`update_norm` (K3') -- ``pmn' = pmn + v - a psi`` plus the
-  per-row-block partials of ``|pmn'|^2`` that give ``b2``.  Replaces
-  ``pallas_conv.py`` ``_update_kernel`` (via ``lanczos_update_pallas``).
+* :func:`update_norm` (K3') -- one recursion step with the normalisation
+  deferred, in one launch: the chain is kept unnormalised (``u_n = b_n
+  psi_n``), and from ``v = H u_n``, ``u_n``, ``u_{n-1}`` and the chain's
+  raw dot ``r = Re<u_n|v>``, ``b_n^2`` and ``b_{n-1}^2`` it writes
+  ``u_{n+1} = v / b_n - (a_n / b_n) u_n - (b_n / b_{n-1}) u_{n-1}`` over
+  ``u_{n-1}``, ``a_n = r / b_n^2`` and ``b_{n+1}^2 = |u_{n+1}|^2``,
+  finished on the card (the last block to finish adds the row blocks'
+  partials in the order of :func:`fold_norm`), and returns the row-block
+  partials.  Or, given ``(alpha, beta, gamma)``, the generalised update
+  ``alpha v + beta psi + gamma pmn``: at ``(1, -a, 1)`` the contract of
+  ``pallas_conv.py`` ``_update_kernel`` (via ``lanczos_update_pallas``),
+  which it replaces together with the normalisation the JAX loop runs
+  after it.
 
 Both SpMVs multiply on the FP64 tensor cores (``mma.sync`` m16n8k8 f64).
 They read the type table realified and cut into the MMA's B fragments
@@ -34,7 +44,9 @@ Each wrapper counts its kernel launches in its ``launches`` attribute.
 
 K1' and K3' (kernels and plain versions) produce partials over the same
 blocks of :data:`ROWS_PER_BLOCK` rows, shape ``(nrowblk, C)``; the caller
-folds them with ``.sum(0)``.  K2' returns the folded ``(C,)`` sum.
+folds K1''s with ``.sum(0)``.  K2' returns the folded ``(C,)`` sum, and
+K3' writes its own (a row slab's caller folds the gathered partials of
+every slab with :func:`fold_norm`, as K3' folds one rank's).
 
 The rows computed and the rows read may differ: ``psi`` holds ``nx + 1``
 rows, ``nx >= kk``, its last row zero and ``nx`` the sentinel column, and
@@ -47,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import os
 import weakref
 from typing import Tuple
@@ -144,12 +157,58 @@ def spmv_dot_pipelined_ref(hs, iz, cols,
     return y, contrib.sum(0)
 
 
-def update_norm_ref(a, psi, v, pmn) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`update_norm` (returns a new tensor)."""
+def run_length(n: int) -> int:
+    """ceil(sqrt(n)): the row blocks of one run of :func:`fold_norm`."""
+    r = math.isqrt(n)
+    return r if r * r == n else r + 1
+
+
+def fold_norm(part: torch.Tensor) -> torch.Tensor:
+    """(nrowblk, C) row-block partials -> (C,), added in K3''s order: runs
+    of :func:`run_length` row blocks, each in row-block order, then the
+    runs in order.  On the same partials it gives K3''s bits."""
+    nrb, c = part.shape
+    ln = run_length(nrb)
+    nrun = -(-nrb // ln)
+    pad = nrun * ln - nrb  # zeros added last change no bit of a sum >= 0
+    if pad:
+        part = torch.cat([part, part.new_zeros(pad, c)])
+    p = part.view(nrun, ln, c)
+    runs = p[:, 0].clone()
+    for j in range(1, ln):
+        runs += p[:, j]
+    total = runs[0].clone()
+    for k in range(1, nrun):
+        total += runs[k]
+    return total
+
+
+def update_coefficients(r, b2, b2_prev):
+    """The deferred step's ``a`` and ``(alpha, beta, gamma)`` per chain from
+    the raw dot ``r = Re<u_n|H u_n>``, ``b2 = |u_n|^2`` and ``b2_prev =
+    |u_{n-1}|^2``, in K3''s order of operations."""
+    a = r / b2
+    sb = torch.sqrt(b2)
+    return a, (1.0 / sb, -(a / sb), -(sb / torch.sqrt(b2_prev)))
+
+
+def update_norm_ref(s, v, psi, pmn, b2_out, a_out=None) -> torch.Tensor:
+    """Plain version of :func:`update_norm`, with its contract: the
+    generalised update ``alpha v + beta psi[:kk] + gamma pmn[:kk]`` per
+    chain written over ``pmn[:kk]``, its norm into ``b2_out`` and its
+    row-block partials returned (``s`` the coefficients, or with
+    ``a_out`` the deferred step's scalars)."""
     kk = v.shape[0]
-    out = pmn + v - a * psi[:kk]
-    contrib = (out.real ** 2 + out.imag ** 2).sum(1)
-    return out, _block_partials(contrib)
+    coef = s
+    if a_out is not None:
+        a, coef = update_coefficients(*s)
+        a_out.copy_(a)
+    alpha, beta, gamma = coef
+    out = alpha * v + beta * psi[:kk] + gamma * pmn[:kk]
+    part = _block_partials((out.real ** 2 + out.imag ** 2).sum(1))
+    pmn[:kk] = out
+    b2_out.copy_(fold_norm(part))
+    return part
 
 
 # ----------------------------------------------------------------------
@@ -256,7 +315,7 @@ def _library() -> ctypes.CDLL:
     lib.haydock_spmv_part.restype = ci
     lib.haydock_spmv_smem.argtypes = [ci] * 4
     lib.haydock_spmv_smem.restype = ctypes.c_longlong
-    lib.haydock_update_norm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, vp]
+    lib.haydock_update_norm.argtypes = [ci] + [vp] * 12 + [ci] * 6 + [vp]
     lib.haydock_update_norm.restype = ci
     lib.haydock_rows_per_block.argtypes = []
     lib.haydock_rows_per_block.restype = ci
@@ -386,8 +445,9 @@ _TICKETS: dict = {}
 
 def _ticket(dev: torch.device, n: int = 1) -> torch.Tensor:
     """``n`` int32 ticket counters for the current stream of ``dev`` (K2'
-    takes one, K4 two): zeroed once, and left zero by every launch (its
-    last block resets them), so launches in stream order share them."""
+    takes one, K4 two, K3' one and one per row block and chain tile):
+    zeroed once, and left zero by every launch (the blocks that take the
+    last tickets reset them), so launches in stream order share them."""
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream, n)
     if key not in _TICKETS:
         _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -424,37 +484,131 @@ def spmv_dot_pipelined(hs, iz, cols,
 spmv_dot_pipelined.launches = 0
 
 
-def update_norm(a, psi, v, pmn) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``pmn' = pmn + v - a psi[:kk]`` and per-row-block partials of
-    ``|pmn'|^2``.
+# K3's launch shape (update_plan)
+UPD_THREADS = 288  # threads a block at most (= UPD_THREADS in csrc)
+UPD_CHAIN_TILE = 256  # chains a block at most
+UPD_KR = (3, 2, 1)  # threads per chain, the kernel's instances
+PIECE_ROWS = 2  # rows a piece (= UPD_PIECE in csrc)
+UPD_EPT = 9  # a thread's elements a block at least, where the rows allow
+UPD_BLOCKS_PER_SM = 2  # blocks per SM at least
 
-    a (C,) float64, psi (nx+1, 9, C) with nx >= kk (its first kk rows
-    are read), v and pmn (kk, 9, C) complex128.
-    Returns pmn' (kk, 9, C) and nrm (nrowblk, C) float64; ``nrm.sum(0)``
-    is the chain's next ``b2``.  On CUDA the kernel writes pmn' IN PLACE
-    over ``pmn`` and returns that tensor; the plain version returns a
-    new tensor.
+
+def update_plan(kk: int, c: int, nsm: int) -> Tuple[int, int, int]:
+    """K3''s launch shape for kk rows and C chains on a card of ``nsm``
+    SMs: ``(ct, kr, rows)``, a block taking ``rows`` rows of ``ct`` chains
+    with ``kr`` threads per chain.  The chains split into equal tiles of
+    at most :data:`UPD_CHAIN_TILE`; ``kr`` is the largest of
+    :data:`UPD_KR` that keeps a block within :data:`UPD_THREADS` (each
+    thread then holds 6 to 18 elements of a piece, so a piece's partial
+    costs a few adds); the rows are the fewest that give a thread
+    :data:`UPD_EPT` elements, halved while the grid holds fewer than
+    :data:`UPD_BLOCKS_PER_SM` blocks per SM, down to one piece (a 512-row
+    prefix at C = 9: 256 blocks of 2 rows).  ``tools/k3_plans.py`` times
+    every shape at the sizes the port launches (PERF.md §6)."""
+    nct = -(-c // UPD_CHAIN_TILE)
+    ct = -(-c // nct)
+    kr = next(k for k in UPD_KR if k * ct <= UPD_THREADS)
+    rows = PIECE_ROWS
+    while rows < ROWS_PER_BLOCK and NORB * rows < UPD_EPT * kr:
+        rows *= 2
+    while (rows > PIECE_ROWS and nrowblk(kk) * (ROWS_PER_BLOCK // rows)
+           * nct < UPD_BLOCKS_PER_SM * nsm):
+        rows //= 2
+    return ct, kr, rows
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_UPDATE_SETUPS: dict = {}
+
+
+def _update_setup(kk: int, c: int, dev: torch.device, stream: int, plan):
+    """K3''s launch shape (``plan`` or :func:`update_plan`), its scratch
+    sizes and its zeroed counters (:func:`_ticket`) for kk rows and C
+    chains on ``dev``'s ``stream``, made once."""
+    key = (kk, c, dev.index, stream, plan)
+    hit = _UPDATE_SETUPS.get(key)
+    if hit is None:
+        ct, kr, rows = plan or update_plan(kk, c, _sm_count(dev.index))
+        nrb, ln, nct = nrowblk(kk), run_length(nrowblk(kk)), -(-c // ct)
+        nrun = -(-nrb // ln)
+        npieces = (nrb * (ROWS_PER_BLOCK // PIECE_ROWS)
+                   if rows < ROWS_PER_BLOCK else 0)
+        counter = _ticket(dev, 1 + (nrb + nrun) * nct)
+        hit = (ct, kr, rows, ln, nrb * c, nrun * c, npieces * c, counter)
+        if len(_UPDATE_SETUPS) >= 64:
+            _UPDATE_SETUPS.clear()
+        _UPDATE_SETUPS[key] = hit
+    return hit
+
+
+def update_norm(s, v, psi, pmn, b2_out, a_out=None,
+                plan=None) -> torch.Tensor:
+    """K3': ``out = alpha v + beta psi[:kk] + gamma pmn[:kk]`` per chain,
+    written IN PLACE over ``pmn[:kk]``, in one launch.
+
+    ``s`` is three (C,) float64 tensors: with ``a_out`` (C,) float64 the
+    recursion's step with its normalisation deferred, ``s = (r, b2,
+    b2_prev)``: the raw dot ``r = Re<psi|v>`` of the unnormalised chain,
+    ``b2 = |psi|^2`` and ``b2_prev = |pmn|^2`` (any positive value where
+    ``pmn`` is zero), and (:func:`update_coefficients`) ``a_out = r / b2``,
+    ``alpha = 1 / sqrt(b2)``, ``beta = -a_out / sqrt(b2)``, ``gamma =
+    -sqrt(b2) / sqrt(b2_prev)``; without it ``s = (alpha, beta, gamma)``.
+    v (kk, 9, C) complex128; psi and pmn complex128 of at least kk rows
+    (their first kk are read; pmn is another tensor than psi and v).
+    Writes ``|out|^2`` into ``b2_out`` (C,) float64, summed on the card in
+    :func:`fold_norm`'s order, and returns the row-block partials
+    (nrowblk, C) float64.  ``plan`` overrides :func:`update_plan`
+    (measurement only); the row-block partials do not depend on it.
     """
     if _route(psi) == "cpu":
-        return update_norm_ref(a, psi, v, pmn)
+        return update_norm_ref(s, v, psi, pmn, b2_out, a_out)
     dev = psi.device
-    kk, _, c = v.shape
-    _check(a, "a", torch.float64, (c,), dev)
-    _check(psi, "psi", torch.complex128, (rows_read(psi, kk) + 1, NORB, c),
-           dev)
-    _check(v, "v", torch.complex128, (kk, NORB, c), dev)
-    _check(pmn, "pmn", torch.complex128, (kk, NORB, c), dev)
-    if kk == 0 or c == 0:
-        raise ValueError("update_norm needs kk > 0 and C > 0")
-    nrm = torch.empty((nrowblk(kk), c), dtype=torch.float64, device=dev)
+    index = dev.index
+    kk, c = v.shape[0], v.shape[2]
+    scalars = (*s, b2_out) if a_out is None else (*s, b2_out, a_out)
+    if not (kk and c and v.shape[1] == NORB
+            and psi.shape[0] >= kk and pmn.shape[0] >= kk
+            and psi.shape[1:] == v.shape[1:] == pmn.shape[1:]
+            and all(t.dtype == torch.complex128 and t.is_contiguous()
+                    and t.get_device() == index for t in (v, psi, pmn))
+            and all(t.dtype == torch.float64 and t.shape == (c,)
+                    and t.is_contiguous() and t.get_device() == index
+                    for t in scalars)):
+        raise ValueError(
+            "update_norm: want v (kk, 9, C), psi and pmn (>= kk rows, 9, C) "
+            f"complex128 and the scalars and outputs (C,) float64, all "
+            f"contiguous on {dev}, kk, C > 0; got v {tuple(v.shape)}, psi "
+            f"{tuple(psi.shape)}, pmn {tuple(pmn.shape)}, scalars "
+            f"{[tuple(t.shape) for t in scalars]}")
+    if pmn.data_ptr() in (psi.data_ptr(), v.data_ptr()):
+        raise ValueError("update_norm: pmn must be another tensor than "
+                         "psi and v")
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    ct, kr, rows, ln, npart, nruns, npieces, counter = _update_setup(
+        kk, c, dev, stream, plan)
+    # one allocation: the partials, the runs' sums, the pieces' partials
+    scratch = torch.empty(npart + nruns + npieces, dtype=torch.float64,
+                          device=dev)
+    base = scratch.data_ptr()
+    args = (int(a_out is not None), s[0].data_ptr(), s[1].data_ptr(),
+            s[2].data_ptr(), v.data_ptr(), psi.data_ptr(), pmn.data_ptr(),
+            base, base + 8 * (npart + nruns) if npieces else base,
+            base + 8 * npart, None if a_out is None else a_out.data_ptr(),
+            b2_out.data_ptr(), counter.data_ptr(), kk, c, ct, kr, rows, ln,
+            stream)
     lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.haydock_update_norm(
-            _ptr(a), _ptr(psi), _ptr(v), _ptr(pmn), _ptr(pmn), _ptr(nrm),
-            kk, c, _stream(dev))
+    if torch.cuda.current_device() == index:
+        err = lib.haydock_update_norm(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.haydock_update_norm(*args)
     _raise_on(err, "haydock_update_norm")
     update_norm.launches += 1
-    return pmn, nrm
+    return scratch[:npart].view(-1, c)
 
 
 update_norm.launches = 0

@@ -6,13 +6,22 @@ Port of ``rslmtoasa_tpu/ops/lanczos.py`` (reference ``source/recursion.f90``
 * the per-(atom, orbital) chain loop is the last axis of ``psi``
   (``C`` chains, ``c = atom * 9 + orbital``);
 * the recursion-depth loop is a Python loop of ``lld - 1`` steps, each
-  one SpMV+dot kernel and one :func:`~.haydock_kernels.update_norm` plus
-  the rescale.  Two engines, chosen as the JAX package's
+  one SpMV+dot kernel and one :func:`~.haydock_kernels.update_norm`, with
+  the normalisation deferred: the chain is kept unnormalised, ``u_n = b_n
+  psi_n`` (``b_0 = 1``, ``u_{-1} = 0``), so that
+
+      u_{n+1} = y_n / b_n - (a_n / b_n) u_n - (b_n / b_{n-1}) u_{n-1},
+      y_n = H u_n,  a_n = Re<u_n|y_n> / b_n^2,  b_{n+1}^2 = |u_{n+1}|^2,
+
+  and K3' writes ``u_{n+1}`` over ``u_{n-1}``, ``a[n]`` and ``b2[n+1]``
+  in one launch: two vectors of kk + 1 rows (row kk zero) and ``y``, and
+  no pass after the update.  The SpMVs are linear, so they run unchanged
+  on ``u_n``.  Two engines, chosen as the JAX package's
   ``lanczos_coefficients_flat_df64`` chooses its Pallas kernels
   (``roll``, default from ``RSLMTO_ROLL``): K1'
   :func:`~.haydock_kernels.spmv_dot`, whose row-block partials are folded
-  here, or K2' :func:`~.haydock_kernels.spmv_dot_pipelined`, which
-  returns the finished ``a``;
+  here into the raw dot, or K2'
+  :func:`~.haydock_kernels.spmv_dot_pipelined`, which returns it finished;
 * missing neighbours use the sentinel column ``kk``; ``psi`` carries one
   extra zero row so gathers need no masking.
 
@@ -76,7 +85,7 @@ def roll_selected(roll: Optional[bool] = None) -> bool:
 
 def _folded(spmv_dot):
     """The contract of K1' turned into that of K2': the row-block
-    partials summed into the chain's ``a``."""
+    partials summed into the chain's raw dot ``Re<u|y>``."""
     def step(hs, iz, cols, psi):
         v, apart = spmv_dot(hs, iz, cols, psi)
         return v, apart.sum(0)
@@ -119,32 +128,24 @@ def lanczos_coefficients(
     else:
         spmv_dot = _folded(hk.spmv_dot_ref if plain else hk.spmv_dot)
     update_norm = hk.update_norm_ref if plain else hk.update_norm
-    kk1, b, c = psi0.shape
+    kk1, _, c = psi0.shape
     dev = psi0.device
     stages = check_stages(stages, cols.shape[0], kk1 - 1, lld - 1)
-    psi = psi0.clone()
-    pmn = torch.zeros((kk1 - 1, b, c), dtype=psi0.dtype, device=dev)
-    summ = torch.ones(c, dtype=torch.float64, device=dev)
+    u = psi0.clone()  # u_n
+    w = torch.zeros_like(psi0)  # u_{n-1}, overwritten by u_{n+1}
     a = torch.zeros((lld, c), dtype=torch.float64, device=dev)
     b2 = torch.zeros((lld, c), dtype=torch.float64, device=dev)
+    b2[0] = 1.0
     ll = 0
     for kk, steps in stages:
         iz_n, cols_n = hk.prefix_tables(iz, cols, kk)
-        psi, pmn = grow_rows(psi, kk + 1), grow_rows(pmn, kk)
-        psi_rows = torch.view_as_real(psi)[:kk]  # (kk, b, c, 2)
+        u, w = grow_rows(u, kk + 1), grow_rows(w, kk + 1)
         for _ in range(steps):
-            v, a_ll = spmv_dot(hs, iz_n, cols_n, psi)
-            a[ll] = a_ll
-            b2[ll] = summ
-            pmn, nrm = update_norm(a_ll, psi, v, pmn)
-            summ = nrm.sum(0)
-            s = torch.sqrt(summ)
-            pmn_new = psi[:kk] * (-s)
-            # psi' = pmn' / s, per real component; row kk stays zero
-            torch.div(torch.view_as_real(pmn), s[:, None], out=psi_rows)
-            pmn = pmn_new
+            y, r = spmv_dot(hs, iz_n, cols_n, u)
+            update_norm((r, b2[ll], b2[max(ll - 1, 0)]), y, u, w,
+                        b2[ll + 1], a[ll])
+            u, w = w, u
             ll += 1
-    b2[lld - 1] = summ
     return a, b2
 
 

@@ -25,9 +25,10 @@ of rows of the tables:
 * **The reductions**: Gram, dot and norm partials cover own rows only and
   are combined over the ranks in rank order (:meth:`.Mesh.sum_in_order`);
   the scalar recursion gathers K1'/K3''s row-block partials in the global
-  order, which gives the single rank's ``a`` and ``b2`` bit for bit where
-  its SpMV rows are.  ``eig_sqrt`` and the products of the recursion's
-  coefficients run replicated, so every rank holds the same results.
+  order and folds them as one rank does, which gives the single rank's
+  ``a`` and ``b2`` bit for bit where its SpMV rows are.  ``eig_sqrt`` and
+  the products of the recursion's coefficients run replicated, so every
+  rank holds the same results.
 
 An impurity's per-atom rows (``nmax`` of them) lead the table, so in every
 slab that holds some of them they lead its own rows: :meth:`Slab.nmax`
@@ -260,12 +261,14 @@ def lanczos_rowsharded(mesh, hs, iz, cols, psi0: torch.Tensor, lld: int, *,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Haydock recursion of the C chains of ``psi0`` (kk+1, 9, C) with the
     rows split into slabs (``mesh.py lanczos_rowsharded`` :219): K1' (K2'
-    with ``roll``) and K3' on each slab, the halo exchanged before each
-    SpMV.  K1''s and K3''s row-block partials are gathered in the global
-    order and summed as one rank sums them, so ``a`` and ``b2`` are the
-    single rank's where the SpMV rows are; K2''s per-slab ``a`` is summed
-    in rank order.  Returns (a, b2) of shape (lld, C) on ``psi0``'s device,
-    the same on every rank."""
+    with ``roll``) and K3' on each slab, with the normalisation deferred as
+    in :func:`~.lanczos.lanczos_coefficients`, the halo exchanged before
+    each SpMV.  K1''s row-block partials are gathered in the global order
+    and summed as one rank sums them, and K3''s folded as K3' folds one
+    rank's (:func:`~.haydock_kernels.fold_norm`), so ``a`` and ``b2`` are
+    the single rank's where the SpMV rows are; K2''s per-slab raw dot is
+    summed in rank order.  Returns (a, b2) of shape (lld, C) on ``psi0``'s
+    device, the same on every rank."""
     slab = slab or Slab(mesh, cols, psi0.device)
     dev = psi0.device
     hs = as_table(hs, torch.complex128).to(dev)
@@ -284,23 +287,18 @@ def lanczos_rowsharded(mesh, hs, iz, cols, psi0: torch.Tensor, lld: int, *,
             v, apart = spmv(hs, iz_l, slab.cols, x)
             return v, mesh.gather_rows(apart, blocks).sum(0)
     update_norm = hk.update_norm_ref if plain else hk.update_norm
-    n, (_, nb, c) = slab.n_own, psi0.shape
-    psi = slab.extend(psi0[slab.lo:slab.hi])
-    pmn = torch.zeros((n, nb, c), dtype=psi0.dtype, device=dev)
-    summ = torch.ones(c, dtype=torch.float64, device=dev)
+    c = psi0.shape[2]
+    u = slab.extend(psi0[slab.lo:slab.hi])  # u_n, as lanczos_coefficients
+    w = torch.zeros_like(u)  # u_{n-1}, overwritten by u_{n+1}
     a = torch.zeros((lld, c), dtype=torch.float64, device=dev)
     b2 = torch.zeros((lld, c), dtype=torch.float64, device=dev)
-    psi_rows = torch.view_as_real(psi)[:n]
+    b2[0] = 1.0
+    mine = torch.empty(c, dtype=torch.float64, device=dev)  # this slab's
     for ll in range(lld - 1):
-        slab.exchange(psi)
-        v, a_ll = spmv_dot(psi)
-        a[ll] = a_ll
-        b2[ll] = summ
-        pmn, nrm = update_norm(a_ll, psi, v, pmn)
-        summ = mesh.gather_rows(nrm, blocks).sum(0)
-        s = torch.sqrt(summ)
-        pmn_new = psi[:n] * (-s)
-        torch.div(torch.view_as_real(pmn), s[:, None], out=psi_rows)
-        pmn = pmn_new
-    b2[lld - 1] = summ
+        slab.exchange(u)
+        y, r = spmv_dot(u)
+        part = update_norm((r, b2[ll], b2[max(ll - 1, 0)]), y, u, w, mine,
+                           a[ll])
+        b2[ll + 1] = hk.fold_norm(mesh.gather_rows(part, blocks))
+        u, w = w, u
     return a, b2

@@ -104,28 +104,91 @@ def test_spmv_dot_kernel_matches_plain(system, card, c):
     assert torch.equal(y, y1) and torch.equal(apart, apart1)  # no atomics
 
 
-@pytest.mark.parametrize("c", [9, 40])
-def test_update_norm_kernel_matches_plain(system, card, c):
-    _, op = system
-    kk = op.kk
-    psi = _psi(kk, c, 2, card)
-    v = _psi(kk, c, 3, card)[:kk]
-    pmn = _psi(kk, c, 4, card)[:kk].contiguous()
-    a = torch.linspace(-1.0, 1.0, c, dtype=torch.float64, device=card)
-    out0, nrm0 = hk.update_norm_ref(a, psi, v, pmn)
+def _vectors(rows, c, seed, card, zero_last=False):
+    """(rows, 9, c) random complex128 made on the card."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    x = torch.view_as_complex(torch.randn((rows, 9, c, 2),
+                                          dtype=torch.float64, device=card,
+                                          generator=gen))
+    if zero_last:
+        x[-1] = 0.0
+    return x
+
+
+def _update_inputs(kk, c, deferred, card, seed=0):
+    """K3''s inputs: v (kk rows), u and w (kk + 1, the last zero), the
+    scalars (r, b2, b2_prev) or (alpha, beta, gamma)."""
+    v = _vectors(kk, c, seed + 1, card)
+    u = _vectors(kk + 1, c, seed + 2, card, zero_last=True)
+    w = _vectors(kk + 1, c, seed + 3, card, zero_last=True)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed + 4)
+    s = torch.randn((3, c), dtype=torch.float64, device=card, generator=gen)
+    if deferred:  # b2 and b2_prev positive
+        s[1:] = s[1:].abs() + 0.5
+    return v, u, w, tuple(s)
+
+
+@pytest.mark.parametrize("deferred", [True, False])
+@pytest.mark.parametrize("c", [1, 9, 13, 144])
+@pytest.mark.parametrize("kk", [512, 1000, 27000])
+def test_update_norm_kernel_matches_plain(card, kk, c, deferred):
+    """K3' against its plain version, the recursion's deferred step and
+    the generalised update: out within 1e-12 of its scale (written over
+    w's first kk rows, its last row left zero), the row-block partials
+    within 1e-12 of theirs, b2 within 1e-13 relative, a within 1e-15;
+    one launch."""
+    v, u, w, s = _update_inputs(kk, c, deferred, card)
+    w0 = w.clone()
+    b2, b20 = (torch.empty(c, dtype=torch.float64, device=card)
+               for _ in range(2))
+    a, a0 = ((torch.empty(c, dtype=torch.float64, device=card)
+              for _ in range(2)) if deferred else (None, None))
+    part0 = hk.update_norm_ref(s, v, u, w0, b20, a0)
     n = hk.update_norm.launches
-    out, nrm = hk.update_norm(a, psi, v, pmn)
+    part = hk.update_norm(s, v, u, w, b2, a)
     assert hk.update_norm.launches == n + 1
-    assert out.data_ptr() == pmn.data_ptr()  # written in place
     torch.cuda.synchronize()
-    assert (out - out0).abs().max() <= BAR * out0.abs().max()
-    assert (nrm - nrm0).abs().max() <= BAR * nrm0.abs().max()
+    assert part.shape == (hk.nrowblk(kk), c)
+    assert (w - w0).abs().max() <= BAR * w0.abs().max()
+    assert w[kk].abs().max() == 0
+    assert (part - part0).abs().max() <= BAR * part0.abs().max()
+    assert ((b2 - b20).abs() / b20).max() <= 1e-13
+    if deferred:
+        assert (a - a0).abs().max() <= 1e-15 * a0.abs().max()
 
 
-def test_recursion_kernels_match_plain(system, card):
+@pytest.mark.parametrize("kk, c", [(1000, 9), (27000, 144)])
+def test_update_norm_ticket_finish(card, kk, c):
+    """K3''s finish on the card: reruns bit-identical, every counter back
+    at zero after each launch, and the same bits (out, row-block partials,
+    b2, a) whatever the grid, from whole row blocks down to 2 rows a
+    block; b2 the partials folded by ``fold_norm``, bit for bit."""
+    v, u, w_in, s = _update_inputs(kk, c, True, card, seed=10)
+    ct, kr, _ = hk.update_plan(kk, c, hk._sm_count(card.index))
+    counter = hk._update_setup(
+        kk, c, card, torch.cuda.current_stream(card).cuda_stream, None)[-1]
+    got = []
+    for plan in (None, None, (ct, kr, 32), (ct, kr, 16), (ct, kr, 2), None):
+        w = w_in.clone()
+        b2, a = (torch.empty(c, dtype=torch.float64, device=card)
+                 for _ in range(2))
+        part = hk.update_norm(s, v, u, w, b2, a, plan=plan)
+        torch.cuda.synchronize()
+        assert int(counter.abs().sum()) == 0
+        got.append((w, part, b2, a))
+    for g in got[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(g, got[0]))
+    assert torch.equal(got[0][2], hk.fold_norm(got[0][1]))
+
+
+@pytest.mark.parametrize("natoms", [1, 16])
+def test_recursion_kernels_match_plain(system, card, natoms):
     _, op = system
     lld = 6
-    psi0 = scalar_start_vectors(op.kk, [0, 3, 7], card)
+    psi0 = scalar_start_vectors(op.kk, list(range(0, 33 * natoms, 33)),
+                                card)
     n1, n3 = hk.spmv_dot.launches, hk.update_norm.launches
     a, b2 = lanczos_coefficients(op.hs, op.iz, op.cols, psi0, lld)
     assert hk.spmv_dot.launches - n1 == lld - 1
@@ -744,13 +807,17 @@ def test_kernels_on_slab_tables(block_system, card, rank):
     y, ap = hk.spmv_dot(hs9, iz, slab.cols, x)
     y0, ap0 = hk.spmv_dot_ref(hs9, iz, slab.cols, x)
     v = _psi(n, 9, 42, card)[:n].contiguous()
-    pmn = _psi(n, 9, 43, card)[:n].contiguous()
-    a = torch.linspace(-1.0, 1.0, 9, dtype=torch.float64, device=card)
-    out0, nrm0 = hk.update_norm_ref(a, x, v, pmn)
-    out, nrm = hk.update_norm(a, x, v, pmn.clone())
+    out0 = _psi(nx, 9, 43, card)
+    out = out0.clone()
+    s = (ap0.sum(0), (x[:n].abs() ** 2).sum((0, 1)),
+         torch.ones(9, dtype=torch.float64, device=card))
+    nb = [torch.empty(9, dtype=torch.float64, device=card) for _ in range(4)]
+    nrm0 = hk.update_norm_ref(s, v, x, out0, nb[0], nb[1])
+    nrm = hk.update_norm(s, v, x, out, nb[2], nb[3])
     torch.cuda.synchronize()
     assert y.shape == (n, 9, 9) and ap.shape == (hk.nrowblk(n), 9)
-    for got, want in ((y, y0), (ap, ap0), (out, out0), (nrm, nrm0)):
+    for got, want in ((y, y0), (ap, ap0), (out, out0), (nrm, nrm0),
+                      (nb[2], nb[0]), (nb[3], nb[1])):
         assert (got - want).abs().max() <= BAR * want.abs().max()
     for d in (18, 9):
         sl = slice(0, d)

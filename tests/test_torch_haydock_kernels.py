@@ -8,6 +8,9 @@ flat layout through ``fs.planes``/``fs.cols`` as in
 complex128, so the bar is that test's own: 1e-12 of the output's scale.
 """
 
+import functools
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -122,12 +125,18 @@ def test_update_norm_ref_matches_pallas(small_system):
     nrm_ref = (np.asarray(nh, np.float64)
                + np.asarray(nl, np.float64)).sum(axis=(1, 2, 3))
 
-    out, nrm = hk.update_norm(torch.from_numpy(a), torch.from_numpy(psi),
-                              torch.from_numpy(v), torch.from_numpy(pmn))
-    out, nrm = out.numpy(), nrm.numpy()
+    # the generalised plain update at (alpha, beta, gamma) = (1, -a, 1)
+    ones = torch.ones(c, dtype=torch.float64)
+    out = torch.from_numpy(pmn.copy())
+    b2_out = torch.empty(c, dtype=torch.float64)
+    nrm = hk.update_norm_ref((ones, torch.from_numpy(-a), ones),
+                             torch.from_numpy(v), torch.from_numpy(psi), out,
+                             b2_out)
+    out, nrm, b2_out = out.numpy(), nrm.numpy(), b2_out.numpy()
     assert out.shape == (kk, 9, c) and nrm.shape == (hk.nrowblk(kk), c)
     assert np.abs(out - out_ref).max() <= BAR * np.abs(out_ref).max()
     assert np.abs(nrm.sum(0) - nrm_ref).max() <= BAR * np.abs(nrm_ref).max()
+    assert np.abs(b2_out - nrm_ref).max() <= BAR * np.abs(nrm_ref).max()
     contrib = (np.abs(out) ** 2).sum(1)
     assert np.abs(nrm - _block_sums(contrib)).max() <= 1e-13 * np.abs(
         nrm).max()
@@ -182,11 +191,17 @@ def test_cpu_dispatch_runs_plain_versions(small_system):
     y, apart = hk.spmv_dot(op.hs, op.iz, op.cols, psi)
     y0, apart0 = hk.spmv_dot_ref(op.hs, op.iz, op.cols, psi)
     assert torch.equal(y, y0) and torch.equal(apart, apart0)
-    a = apart.sum(0)
-    pmn = torch.zeros_like(y)
-    out, nrm = hk.update_norm(a, psi, y, pmn)
-    out0, nrm0 = hk.update_norm_ref(a, psi, y, pmn)
-    assert torch.equal(out, out0) and torch.equal(nrm, nrm0)
+    r = apart.sum(0)
+    b2 = (psi.abs() ** 2).sum((0, 1))
+    outs = []
+    for fn in (hk.update_norm, hk.update_norm_ref):
+        pmn = psi.clone()
+        a_out, b2_out = torch.empty(3, dtype=torch.float64), torch.empty(
+            3, dtype=torch.float64)
+        part = fn((r, b2, torch.ones(3, dtype=torch.float64)), y, psi, pmn,
+                  b2_out, a_out)
+        outs.append((pmn, part, a_out, b2_out))
+    assert all(torch.equal(g, w) for g, w in zip(*outs))
     assert (hk.spmv_dot.launches, hk.update_norm.launches) == (n1, n3)
 
 
@@ -198,8 +213,8 @@ def test_other_devices_raise(small_system):
     with pytest.raises(ValueError, match="no Haydock kernel"):
         hk.spmv_dot(op.hs, op.iz, op.cols, meta)
     with pytest.raises(ValueError, match="no Haydock kernel"):
-        hk.update_norm(torch.empty(2, device="meta"), meta, meta[:-1],
-                       meta[:-1])
+        s = (torch.empty(2, device="meta"),) * 3
+        hk.update_norm(s, meta[:-1], meta, meta.clone(), s[0])
 
 
 def test_block_spmv_multi_type_matches_jax():
@@ -402,3 +417,138 @@ def test_packed_table_is_cached(small_system):
     hs.mul_(2.0)
     table2 = hk.packed_table(hs)
     assert table2 is not table and torch.equal(table2, 2.0 * table)
+
+
+# ----------------------------------------------------------------------
+# K3' with its normalisation deferred
+DEFERRED_LLD, DEFERRED_STARTS, DEFERRED_C = 8, [0, 3], 13
+
+
+@functools.lru_cache(maxsize=None)
+def _deferred_reference(preset):
+    """The preset's tables, the first 13 start chains of atoms 0 and 3,
+    and the JAX package's complex128 coefficients of those chains (each
+    chain recurs on its own, so the first c columns of it are the
+    reference of c chains)."""
+    blk, js = _jax_preset(preset)
+    hb = js.ham
+    kk = hb.cols.shape[0]
+    psi0 = np.ascontiguousarray(
+        jl.scalar_start_vectors(kk, DEFERRED_STARTS)[..., :DEFERRED_C])
+    a_ref, b_ref = (np.asarray(x) for x in jl.lanczos_coefficients(
+        jnp.asarray(blk), jnp.asarray(hb.iz), jnp.asarray(hb.cols),
+        jnp.asarray(psi0), DEFERRED_LLD))
+    return blk, hb, psi0, a_ref, b_ref
+
+
+@pytest.mark.parametrize("preset", ["bcc8", "b2"])
+@pytest.mark.parametrize("c", [1, 9, 13])
+def test_deferred_recursion_matches_jax(preset, c):
+    """The recursion with its normalisation deferred (the plain versions on
+    the CPU) against the JAX package's complex128 ``lanczos_coefficients``
+    (1e-12, that test's bar), on one stage and on two wavefront stages
+    (the hop-ordered tables, the first stage the prefix the plan gives
+    its first steps, the second all rows)."""
+    from rslmtoasa_tpu_torch.ops import wavefront as pwf
+
+    blk, hb, psi0, a_ref, b_ref = _deferred_reference(preset)
+    kk, lld = hb.cols.shape[0], DEFERRED_LLD
+    psi0 = torch.from_numpy(np.ascontiguousarray(psi0[..., :c]))
+    a_ref, b_ref = a_ref[:, :c], b_ref[:, :c]
+    a, b2 = HaydockOperator(blk, hb.iz, hb.cols).coefficients(psi0, lld)
+    assert a.shape == (lld, c) and b2[0].eq(1.0).all() and a[-1].eq(0).all()
+    assert np.abs(a.numpy() - a_ref).max() <= 1e-12
+    assert np.abs(b2.numpy() - b_ref).max() <= 1e-12
+    plan = pwf.make_plan(hb.cols, kk, DEFERRED_STARTS, lld, granularity=32)
+    n0, s0 = plan.stages[0]
+    assert n0 < kk and 0 < s0 < lld - 1
+    iz_w, cols_w, _ = plan.permute_tables(hb.iz, hb.cols)
+    a2, b22 = HaydockOperator(blk, iz_w, cols_w).coefficients(
+        pwf.permuted_start(psi0, plan), lld,
+        stages=((n0, s0), (kk, lld - 1 - s0)))
+    assert np.abs(a2.numpy() - a_ref).max() <= 1e-12
+    assert np.abs(b22.numpy() - b_ref).max() <= 1e-12
+
+
+def test_update_norm_ref_general_coefficients():
+    """The plain update at general (alpha, beta, gamma), and the deferred
+    step's coefficients, against NumPy: written over the first kk rows of
+    pmn (its last row untouched), the row-block partials of |out|^2 and
+    their sum."""
+    rng = np.random.default_rng(23)
+    kk, c = 70, 5  # three row blocks, the last one partial
+    v = _complex(rng, (kk, 9, c))
+    psi = _complex(rng, (kk + 1, 9, c))
+    pmn = _complex(rng, (kk + 1, 9, c))
+    r, b2, b2p = rng.standard_normal(c), rng.random(c) + 0.5, rng.random(
+        c) + 0.5
+    al, be, ga = rng.standard_normal((3, c))
+    sb = np.sqrt(b2)
+    cases = {"general": ((al, be, ga), (al, be, ga), False),
+             "deferred": ((r, b2, b2p), (1 / sb, -(r / b2) / sb,
+                                         -sb / np.sqrt(b2p)), True)}
+    for name, (s, (x, y, z), deferred) in cases.items():
+        want = x * v + y * psi[:kk] + z * pmn[:kk]
+        out = torch.from_numpy(pmn.copy())
+        b2_out = torch.empty(c, dtype=torch.float64)
+        a_out = torch.empty(c, dtype=torch.float64) if deferred else None
+        part = hk.update_norm_ref(tuple(torch.from_numpy(t) for t in s),
+                                  torch.from_numpy(v), torch.from_numpy(psi),
+                                  out, b2_out, a_out)
+        out = out.numpy()
+        assert np.abs(out[:kk] - want).max() <= 1e-14 * np.abs(want).max()
+        assert np.array_equal(out[kk], pmn[kk]), name
+        contrib = (np.abs(want) ** 2).sum(1)
+        assert part.shape == (3, c)
+        assert np.abs(part.numpy() - _block_sums(contrib)).max() <= 1e-13 * (
+            np.abs(part.numpy()).max())
+        norm = contrib.sum(0)
+        assert np.abs(b2_out.numpy() - norm).max() <= 1e-13 * norm.max()
+        if deferred:
+            assert np.abs(a_out.numpy() - r / b2).max() <= 1e-15 * np.abs(
+                r / b2).max()
+
+
+@pytest.mark.parametrize("nrb", [1, 2, 7, 16, 30, 844])
+def test_fold_norm_adds_in_the_kernels_order(nrb):
+    """``fold_norm`` gives the bits of K3''s finish: runs of
+    ceil(sqrt(nrowblk)) row blocks, each added in order from 0, then the
+    runs in order."""
+    rng = np.random.default_rng(nrb)
+    part = rng.random((nrb, 3)) * 10.0 ** rng.uniform(-3, 3, (nrb, 3))
+    ln = math.ceil(math.sqrt(nrb))
+    assert hk.run_length(nrb) == ln
+    want = []
+    for ch in range(3):
+        runs = []
+        for start in range(0, nrb, ln):
+            s = 0.0
+            for j in range(start, min(nrb, start + ln)):
+                s += part[j, ch]
+            runs.append(s)
+        total = 0.0
+        for s in runs:
+            total += s
+        want.append(total)
+    got = hk.fold_norm(torch.from_numpy(part)).numpy()
+    assert np.array_equal(got, np.array(want))
+
+
+@pytest.mark.parametrize("kk, c, want", [
+    (512, 9, (9, 3, 2)), (1000, 9, (9, 3, 2)), (27000, 9, (9, 3, 4)),
+    (27000, 144, (144, 2, 2)), (512, 144, (144, 2, 2)),
+    (4096, 13, (13, 3, 4)), (64, 1, (1, 3, 2)), (40, 600, (200, 1, 2))])
+def test_update_plan_fills_the_card(kk, c, want):
+    """K3''s grid: the fewest threads per chain (3, 2 or 1) that a block
+    of at most 288 threads holds, so that each thread takes 6 to 18
+    elements of a piece; blocks of the fewest rows that give a thread 9
+    elements, halved while the grid holds fewer than two blocks per SM
+    (132 SMs), down to one piece of 2 rows; the chains in equal tiles of
+    at most 256."""
+    got = hk.update_plan(kk, c, 132)
+    assert got == want
+    ct, kr, rows = got
+    assert kr * ct <= hk.UPD_THREADS and 18 % kr == 0
+    nblocks = hk.nrowblk(kk) * (hk.ROWS_PER_BLOCK // rows) * -(-c // ct)
+    assert nblocks >= 2 * 132 or rows == hk.PIECE_ROWS
+    assert 9 * rows >= hk.UPD_EPT * kr or nblocks < 2 * 132 * 2
