@@ -1,0 +1,6 @@
+"""terminators_ms.scf: milliseconds a job of the window spent in the program's timer
+section(s) dos-phase/terminators (``g_timer``); none where they did not run."""
+
+
+def read(run):
+    return run.section_ms("terminators")
