@@ -381,6 +381,9 @@ def random_chains(kk, c, seed, dev, d=9):
     return torch.from_numpy(x).to(dev)
 
 
+REC = "scf-iteration/recursion-phase/"  # an SCF iteration's recursions
+
+
 def section_totals(timer):
     """{section path: seconds so far} of the SCF's timer tree."""
     out = {}
@@ -834,7 +837,7 @@ def embedded_phase(dev, records, every, sizes=EMBEDDED,
                     want["block_step"] = NSTEP * per_it
                 check(r["launches"] == want, f"{k} {case} {run} launches "
                       f"{r['launches']}, want {want}")
-                rec = r["spent"][f"recursion-phase/{spec['recur']}-recursion"]
+                rec = r["spent"][f"{REC}{spec['recur']}-recursion"]
                 say(8, f"SCF {k} {case} {run}: {r['wall'] / NSTEP:.3f} s per "
                        f"iteration, recursion {100 * rec / r['wall']:.1f}%; "
                        "seconds per iteration: " + ", ".join(
@@ -1958,7 +1961,7 @@ def large_cluster_phase(dev, records, every, box=LARGE_BOX,
     check(r["launches"] == want, f"box {box} SCF launches {r['launches']}")
     for f in ("block_step[wavefront]",):
         records[f]["launches"] = r["launches"]["block_step"]
-    rec = r["spent"]["recursion-phase/block-recursion"]
+    rec = r["spent"][REC + "block-recursion"]
     say(12, f"SCF block box {box} on the wavefront: {r['wall'] / NSTEP:.3f}"
             f" s per iteration, recursion {100 * rec / r['wall']:.1f}%; "
             + ", ".join(f"{k} {v:.3f}" for k, v in r["spent"].items()
@@ -1978,7 +1981,7 @@ def large_cluster_phase(dev, records, every, box=LARGE_BOX,
     diffs = scf_diffs(r["first"], d["first"])
     say(12, f"SCF box {box}, first iteration, wavefront vs full width "
             f"({d['wall']:.3f} s, recursion "
-            f"{d['spent']['recursion-phase/block-recursion']:.3f} s): "
+            f"{d['spent'][REC + 'block-recursion']:.3f} s): "
             + ", ".join(f"|d{q}|={v:.3e}" for q, v in diffs.items()))
     check(all(v <= SCF_BARS[q] for q, v in diffs.items()),
           f"box {box} SCF wavefront vs full width: {diffs}")
@@ -2745,7 +2748,7 @@ def main():
                                                          **PRESET),
                     wrappers, g_timer)
             r["solver"] = calls[-1]  # the second iteration's
-            rec = r["spent"]["recursion-phase/recursion"]
+            rec = r["spent"][REC + "recursion"]
             say(4, f"SCF {run} sections (s): " + ", ".join(
                 f"{k} {v:.3f}" for k, v in r["spent"].items()
                 if v > 0.0005))
@@ -2967,7 +2970,7 @@ def main():
             check(r["launches"] == want(device, plain, NSTEP),
                   f"{case} {run} launches {r['launches']}, want "
                   f"{want(device, plain, NSTEP)}")
-            rec = r["spent"][f"recursion-phase/{spec['recur']}-recursion"]
+            rec = r["spent"][f"{REC}{spec['recur']}-recursion"]
             say(7, f"SCF {case} {run}: {r['wall'] / NSTEP:.3f} s per "
                    f"iteration, recursion {100 * rec / r['wall']:.1f}%; "
                    + ", ".join(f"{k} {v:.3f}" for k, v in r["spent"].items()

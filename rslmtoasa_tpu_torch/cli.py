@@ -39,6 +39,9 @@ reference's ranks do; only rank 0 writes into ``output`` and logs, the
 others write into a temporary directory that is removed at their end.  ``&lattice write_artifacts`` (or ``RSLMTO_WRITE_GEOM``) writes
 the geometry exports ``clust``, ``map``, ``str.out``, ``sbar`` and
 ``view.sbar`` after the system is built (``utils/artifacts.py``).
+``RSLMTO_PROFILE=<dir>`` runs the job under ``torch.profiler`` and writes
+``<dir>/trace_rank<r>.json``, a Chrome trace of the timer's sections and
+the card's kernels and copies.
 """
 
 from __future__ import annotations
@@ -85,8 +88,30 @@ def main(argv=None) -> int:
     from .parallel.mesh import init_distributed, rank
 
     dev = init_distributed(device=device) or dev
-    if rank() != 0:
-        scratch = tempfile.mkdtemp(prefix=f"rslmto_rank{rank()}_")
+    prof_dir = os.environ.get("RSLMTO_PROFILE")
+    if not prof_dir:
+        return _run_rank(rank(), input_file, extra, outdir, dev)
+    # RSLMTO_PROFILE=<dir>: the whole job under torch.profiler, written
+    # there as a Chrome trace: the timer's sections as host ranges and the
+    # card's kernels and copies on one timeline
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        rc = _run_rank(rank(), input_file, extra, outdir, dev)
+    os.makedirs(prof_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(prof_dir,
+                                          f"trace_rank{rank()}.json"))
+    return rc
+
+
+def _run_rank(r: int, input_file, extra, outdir, dev) -> int:
+    """Rank 0 writes into ``outdir`` and logs; the others write into a
+    temporary directory and stay quiet."""
+    if r != 0:
+        scratch = tempfile.mkdtemp(prefix=f"rslmto_rank{r}_")
         level = g_logger.level
         g_logger.level = 100  # above fatal: only rank 0 logs
         try:

@@ -175,6 +175,13 @@ class ExchangeCalculation:
 
     # ------------------------------------------------------------------
     def run(self):
+        """The pairs' recursion, Green functions and LKAG integrals: the
+        Jij table (``jij.out``, ``dij.out``, ``aij.out``, ``jtens.out``);
+        returns one dict per pair."""
+        with g_timer.section("jij-table"):
+            return self._run()
+
+    def _run(self):
         cfg = self.cfg
         sys = self.sys
         cl = sys.cluster
@@ -217,7 +224,8 @@ class ExchangeCalculation:
             # a zero chain's recursion keeps its b2_b[0] = I
             dead = np.setdiff1d(np.arange(nchain), self.chains)
             b2_b[0, dead] = np.eye(18)
-            self.b_b = zsqr(b2_b)
+            with g_timer.section("terminators"):  # host
+                self.b_b = zsqr(b2_b)
         with g_timer.section("intersite-gf"):
             self.intersite_gf(emesh)
         with g_timer.section("jij-integrals"):
@@ -256,7 +264,8 @@ class ExchangeCalculation:
                                 self.device, host=False)
         else:
             a_b, b_b = self.a_b[:, live], self.b_b[:, live]
-            self.a_inf, self.b_inf = get_terminf(a_b, b_b)
+            with g_timer.section("terminators"):  # host
+                self.a_inf, self.b_inf = get_terminf(a_b, b_b)
             g = bgreen(a_b, b_b, self.a_inf, self.b_inf, emesh.ene,
                        self.device, sym_term=self.cfg.control.sym_term,
                        host=False)
@@ -614,6 +623,10 @@ class ExchangeCalculation:
         aijso/aijfo/aijparts (+ the reference's empty jtens files and
         its unit-150 cumulative Jij curve, fort.150).  Requires run().
         """
+        with g_timer.section("jij-twoindex"):
+            self._twoindex()
+
+    def _twoindex(self):
         cl = self.sys.cluster
         emesh = EnergyMesh.build(self.cfg.energy)
         ne = emesh.npts

@@ -161,38 +161,59 @@ class SelfConsistency:
                       f"{self.engine()}")
         for it in range(1, nstep + 1):
             g_logger.info(f"SCF iteration {it}/{nstep}")
-            with g_timer.section("recursion-phase"):
-                sys.build_hamiltonian()
-                if recur == "block":
-                    a_b, b2_b = sys.run_block()
-                elif recur == "chebyshev":
-                    # the moments depend on the energy window scaling only
-                    emesh_ch = EnergyMesh.build(cfg.energy, fermi=self.fermi)
-                    mu = sys.run_chebyshev(emesh_ch)
-                else:
-                    a, b2 = sys.run_lanczos()
-            self.mix.save_to("old", sys.atoms, self.iz_rec)
-            for ia, isp in enumerate(self.iz_rec):
-                self.mix.mag_old[ia] = sys.atoms[isp].potential.mom
+            with g_timer.section("scf-iteration"):
+                self._iteration()
+            self.state.delta = self.mix.delta
+            self.state.niter = it
+            if self.mix.delta < cfg.scf.conv_thr:
+                g_logger.info(f"Converged! delta={self.mix.delta:.3e}")
+                self.state.converged = True
+                break
+            g_logger.info(f"Not converged, delta={self.mix.delta:.6e}")
+        return self.state
 
-            # ---------------- run_dos -------------------------------
-            with g_timer.section("dos-phase"):
-                emesh = EnergyMesh.build(cfg.energy, fermi=self.fermi)
-                sys.emesh = emesh
-                if recur == "block":
-                    with g_timer.section("terminators"):  # host
-                        b_b = zsqr(b2_b)
-                        a_inf, b_inf = get_terminf(a_b, b_b)
-                    with g_timer.section("green-function"):
-                        g0 = bgreen(a_b, b_b, a_inf, b_inf, emesh.ene,
-                                    sys.device, sym_term=cfg.control.sym_term)
-                elif recur == "chebyshev":
-                    with g_timer.section("green-function"):
-                        g0 = chebyshev_green(mu, emesh.ene, emesh.energy_min,
-                                             emesh.energy_max, sys.device)
-                else:
-                    tdens = sys.ldos(a, b2)
-                    g0 = self.g0_from_ldos(tdens)
+    # ------------------------------------------------------------------
+    def _iteration(self):
+        """One SCF iteration.  Its spans are siblings: ``bands`` (the Fermi
+        search, the moments, the mixing and the electrostatics) opens again
+        after ``scf-output`` writes the densities of states between the
+        Fermi search and the moments."""
+        cfg = self.cfg
+        sys = self.sys
+        recur = cfg.control.recur
+        with g_timer.section("recursion-phase"):
+            sys.build_hamiltonian()
+            if recur == "block":
+                a_b, b2_b = sys.run_block()
+            elif recur == "chebyshev":
+                # the moments depend on the energy window scaling only
+                emesh_ch = EnergyMesh.build(cfg.energy, fermi=self.fermi)
+                mu = sys.run_chebyshev(emesh_ch)
+            else:
+                a, b2 = sys.run_lanczos()
+        self.mix.save_to("old", sys.atoms, self.iz_rec)
+        for ia, isp in enumerate(self.iz_rec):
+            self.mix.mag_old[ia] = sys.atoms[isp].potential.mom
+
+        # ---------------- run_dos -----------------------------------
+        with g_timer.section("dos-phase"):
+            emesh = EnergyMesh.build(cfg.energy, fermi=self.fermi)
+            sys.emesh = emesh
+            if recur == "block":
+                with g_timer.section("terminators"):  # host
+                    b_b = zsqr(b2_b)
+                    a_inf, b_inf = get_terminf(a_b, b_b)
+                with g_timer.section("green-function"):
+                    g0 = bgreen(a_b, b_b, a_inf, b_inf, emesh.ene,
+                                sys.device, sym_term=cfg.control.sym_term)
+            elif recur == "chebyshev":
+                with g_timer.section("green-function"):
+                    g0 = chebyshev_green(mu, emesh.ene, emesh.energy_min,
+                                         emesh.energy_max, sys.device)
+            else:
+                tdens = sys.ldos(a, b2)
+                g0 = self.g0_from_ldos(tdens)
+            with g_timer.section("bands"):
                 bands = Bands(emesh, sys.atoms, self.iz_rec, self.qqv,
                               nsp=cfg.control.nsp)
                 # totaldos.out is written with the pre-search Fermi level
@@ -203,7 +224,9 @@ class SelfConsistency:
                     g0, fix_fermi=emesh.fix_fermi,
                     calctype=cfg.control.calctype,
                 )
+            with g_timer.section("scf-output"):
                 self._write_totaldos(bands, emesh, fermi_for_output)
+            with g_timer.section("bands"):
                 bands.calculate_magnetic_moments(g0)
                 for ia, isp in enumerate(self.iz_rec):
                     self.mix.mag_new[ia] = sys.atoms[isp].potential.mom
@@ -222,28 +245,22 @@ class SelfConsistency:
                 self.mix.save_to("new", sys.atoms, self.iz_rec)
                 self.fermi = emesh.fermi
 
-            # ---------------- mixing + electrostatics ---------------
+        # ---------------- mixing + electrostatics -------------------
+        with g_timer.section("bands"):
             self.mix.mixpq()
             dq = self.mix.charge_transfer(sys.atoms, self.iz_rec)
             self.electrostatics(dq)
             self.mix.save_to("current", sys.atoms, self.iz_rec)
 
-            # ---------------- atomic spheres ------------------------
-            with g_timer.section("atomic-scf"):
-                self.run_scf()
+        # ---------------- atomic spheres ----------------------------
+        with g_timer.section("atomic-scf"):
+            self.run_scf()
 
+        with g_timer.section("scf-output"):
             # rewrite fermi in the input file (self.f90 :748; skipped
             # for read-only inputs)
             update_fermi_in_input(self.fermi, cfg.control.fname)
             self.save_checkpoints()
-            self.state.delta = self.mix.delta
-            self.state.niter = it
-            if self.mix.delta < cfg.scf.conv_thr:
-                g_logger.info(f"Converged! delta={self.mix.delta:.3e}")
-                self.state.converged = True
-                break
-            g_logger.info(f"Not converged, delta={self.mix.delta:.6e}")
-        return self.state
 
     # ------------------------------------------------------------------
     def electrostatics(self, dq: np.ndarray):

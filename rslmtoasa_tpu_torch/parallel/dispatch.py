@@ -54,6 +54,7 @@ from ..ops.chebyshev import chebyshev_moments
 from ..ops.kubo import VelocityOperator, kubo_moments, plan
 from ..ops.lanczos import HaydockOperator
 from ..utils.logger import g_logger
+from ..utils.timer import g_timer
 from . import mesh as mesh_mod
 
 MAX_STARTS = 4096  # start rows beyond which the wavefront is not planned
@@ -154,8 +155,10 @@ def _wavefront_plan(cols, psi0: torch.Tensor, lld: int, hoh: bool,
         return None
     mk = (wavefront.make_plan_chebyshev if kind == "chebyshev"
           else wavefront.make_plan)
-    p = mk(np.asarray(cols), kk, starts.cpu().numpy(), lld,
-           hops_per_step=2 if hoh else 1)
+    starts = starts.cpu().numpy()
+    with g_timer.section("wavefront-plan"):
+        p = mk(np.asarray(cols), kk, starts, lld,
+               hops_per_step=2 if hoh else 1)
     if p.work >= 0.7 * p.dense_work:
         return None
     g_logger.debug(f"wavefront: stages {p.stages}, "
