@@ -178,6 +178,14 @@ code is then non-zero):
    dry run (``rslmtoasa_tpu_torch.dryrun``) at two ranks on the card.
    Every time there measures the plumbing of two ranks on one card, not
    scaling.
+14. terminator fits: ``bpopt_fit`` (``csrc/terminator.cu``) through
+   ``get_terminf`` on the box-30 preset's block chains (lld 20, nsp 2)
+   at R = 1 (324 chains) and R = 21 (6 804), bit for bit the NumPy
+   route; the kernel's CUDA-event time, the NumPy route's wall, the
+   whole call on the card's tensors, and the latency bound: the slowest
+   chain's Sturm counts (the kernel's own count) times its n - 1 dependent
+   levels a count times one level's latency, timed apart on one thread
+   (``sturm_steps``, the chain's own finite operands).
 
 All kernel sources build at once in phase 1, one nvcc each.
 
@@ -246,7 +254,13 @@ SLAB_FORMS = {
 SOURCES.update({n: "rslmtoasa_tpu_torch/csrc/" + (
     "block_step.cu" if n.startswith("block") else "haydock.cu")
     for n in SLAB_FORMS})
-REPLACES = {"spmv_dot": "rslmtoasa_tpu/ops/pallas_conv.py:185",
+# phase 14: the terminator fits, which the JAX package runs in NumPy on
+# the host (no Pallas kernel)
+SOURCES["bpopt_fit"] = "rslmtoasa_tpu_torch/csrc/terminator.cu"
+TERMINATOR_R = (1, 21)
+STURM_REPS = 20_000  # passes of sturm_steps over a chain's levels
+REPLACES = {"bpopt_fit": "rslmtoasa_tpu/ops/terminator.py:158 (NumPy)",
+            "spmv_dot": "rslmtoasa_tpu/ops/pallas_conv.py:185",
             "spmv_dot_pipelined": "rslmtoasa_tpu/ops/pallas_conv.py:352",
             "update_norm": "rslmtoasa_tpu/ops/pallas_conv.py:551",
             **{n: "rslmtoasa_tpu/ops/block_lanczos.py:27"
@@ -835,6 +849,7 @@ def embedded_phase(dev, records, every, sizes=EMBEDDED,
                 want = {n: 0 for n in every}
                 if torch.device(device).type != "cpu" and not plain:
                     want["block_step"] = NSTEP * per_it
+                    want["bpopt_fit"] = NSTEP * (spec["recur"] == "block")
                 check(r["launches"] == want, f"{k} {case} {run} launches "
                       f"{r['launches']}, want {want}")
                 rec = r["spent"][f"{REC}{spec['recur']}-recursion"]
@@ -865,6 +880,7 @@ def embedded_phase(dev, records, every, sizes=EMBEDDED,
                 if torch.device(engine[got][0]).type != "cpu" \
                         and not engine[got][1]:
                     want["block_step"] = per_it
+                    want["bpopt_fit"] = int(spec["recur"] == "block")
                 check(twin["launches"] == want,
                       f"{pair} iteration 2 launches {twin['launches']}")
                 port = scf_diffs(twin, res[ref])
@@ -1098,7 +1114,8 @@ def exchange_phase(dev, records, every, templates):
 
     def reading(run, r_):
         return (f"{r_['wall']:.3f} s, K4 launches "
-                f"{r_['launches']['block_step']}, peak "
+                f"{r_['launches']['block_step']}, fits "
+                f"{r_['launches']['bpopt_fit']}, peak "
                 f"{r_['peak'] / 2**30:.2f} GiB; " + ", ".join(
                     f"{k} {v:.3f}" for k, v in r_["spent"].items()))
 
@@ -1117,8 +1134,10 @@ def exchange_phase(dev, records, every, templates):
                 k4 = (2 if spec["hoh"] else 1) * (
                     lld + 1 if spec["recur"] == "chebyshev" else lld - 1)
                 k4 = k4 if run in ("cuda", "cuda-box10") else 0
+                # one launch of the fits a block table on the card
+                fits = int(k4 > 0 and spec["recur"] == "block")
                 check(r_["launches"] == dict({n: 0 for n in every},
-                                             block_step=k4),
+                                             block_step=k4, bpopt_fit=fits),
                       f"{case} {run} launches {r_['launches']}")
                 say(9, f"exchange {case} {run}: " + reading(run, r_))
             say(9, f"exchange {case} cuda Jij (mRy): " + ", ".join(
@@ -1443,10 +1462,15 @@ def last_branches_phase(dev, records, every, templates):
         return dict(obj=obj, wall=wall, launches=launches, spent=spent,
                     peak=torch.cuda.max_memory_allocated(dev), dir=work)
 
-    def launched(r_, k4, what):
-        check(r_["launches"] == dict({n: 0 for n in every}, block_step=k4),
-              f"{what}: launches {r_['launches']}, want K4 {k4}")
-        say(11, f"{what}: {r_['wall']:.3f} s, K4 launches {k4}, peak "
+    def launched(r_, k4, what, fits=0):
+        """K4's ``k4`` launches and the terminator fits' ``fits`` (one a
+        block recursion's SCF iteration or Jij table), no other kernel's."""
+        check(r_["launches"] == dict({n: 0 for n in every}, block_step=k4,
+                                     bpopt_fit=fits),
+              f"{what}: launches {r_['launches']}, want K4 {k4}, fits "
+              f"{fits}")
+        say(11, f"{what}: {r_['wall']:.3f} s, K4 launches {k4}, fits "
+                f"{fits}, peak "
                 f"{r_['peak'] / 2**30:.2f} GiB; " + ", ".join(
                     f"{k} {v:.3f}" for k, v in r_["spent"].items()))
 
@@ -1534,7 +1558,8 @@ def last_branches_phase(dev, records, every, templates):
 
         # bravais SCF, then the three p2rs branches on its export ---------
         r_ = branch(configured(30, dev), os.path.join(tmp, "bravais"))
-        launched(r_, lld - 1, "bravais block SCF box 30 (rs2paoham.dat)")
+        launched(r_, lld - 1, "bravais block SCF box 30 (rs2paoham.dat)",
+                 1)
         src = os.path.join(tmp, "p2rs")
         os.makedirs(src)
         shutil.copy(os.path.join(r_["dir"], "rs2paoham.dat"),
@@ -1545,13 +1570,14 @@ def last_branches_phase(dev, records, every, templates):
         csys = configured(30, dev, window=WINDOW)
         csys.cfg.control.cond_ll, csys.cfg.control.cond_calctype = \
             COND_LL, "per_type"
-        for post, sys_, k4, out in (
-                ("paoflow2rs", configured(30, dev), lld - 1, "X_out.nml"),
-                ("exchange_p2rs", xsys, lld - 1, "jij.out"),
+        for post, sys_, k4, fits, out in (
+                ("paoflow2rs", configured(30, dev), lld - 1, 1, "X_out.nml"),
+                ("exchange_p2rs", xsys, lld - 1, 1, "jij.out"),
                 ("conductivity_p2rs", csys,
-                 kubo.launches(COND_LL, COND_LL, False), "cond_total.out")):
+                 kubo.launches(COND_LL, COND_LL, False), 0,
+                 "cond_total.out")):
             r_ = branch(sys_, os.path.join(tmp, post), post=post, src=src)
-            launched(r_, k4, f"{post} box 30")
+            launched(r_, k4, f"{post} box 30", fits)
             if out.endswith(".out"):
                 finite_numbers(os.path.join(r_["dir"], out))
             check(os.path.exists(os.path.join(r_["dir"], out)),
@@ -1561,7 +1587,7 @@ def last_branches_phase(dev, records, every, templates):
         # sd at nsp=3 and the torques of one state ----------------------
         r_ = branch(configured(30, dev, nsp=3), os.path.join(tmp, "sd"),
                     proc="sd")
-        launched(r_, 3 * (lld - 1), "sd box 30 nsp=3, 2 steps (3 SCFs)")
+        launched(r_, 3 * (lld - 1), "sd box 30 nsp=3, 2 steps (3 SCFs)", 3)
         traj = os.path.join(r_["dir"], "output.lammpstrj")
         with open(traj) as fh:
             check(fh.read().count("ITEM: TIMESTEP") == 2, "two frames")
@@ -1623,15 +1649,17 @@ def last_branches_phase(dev, records, every, templates):
             out["sd"] = branch(configured(10, device, nsp=3),
                                os.path.join(base, "sd"), proc="sd")
             if tag == "cuda":
-                for what, k4 in (
-                        ("bravais", lld - 1), ("paoflow2rs", lld - 1),
-                        ("exchange_p2rs", XC_SMALL_LLD - 1),
+                for what, k4, fits in (
+                        ("bravais", lld - 1, 1), ("paoflow2rs", lld - 1, 1),
+                        ("exchange_p2rs", XC_SMALL_LLD - 1, 1),
                         ("conductivity_p2rs",
-                         kubo.launches(COND_SMALL_LL, COND_SMALL_LL, False)),
+                         kubo.launches(COND_SMALL_LL, COND_SMALL_LL, False),
+                         0),
                         ("orbital", orbital.launches(
-                            XC_SMALL_LLD, ORB_SMALL_SITES, ORB_SMALL_SITES)),
-                        ("sd", 3 * (lld - 1))):
-                    launched(out[what], k4, f"{what} box 10 cuda")
+                            XC_SMALL_LLD, ORB_SMALL_SITES, ORB_SMALL_SITES),
+                         0),
+                        ("sd", 3 * (lld - 1), 3)):
+                    launched(out[what], k4, f"{what} box 10 cuda", fits)
             else:
                 for what, r_ in out.items():
                     launched(r_, 0, f"{what} box 10 cpu")
@@ -1957,7 +1985,8 @@ def large_cluster_phase(dev, records, every, box=LARGE_BOX,
 
     r = scf_once(scf_mod.SelfConsistency, configured(dev), every,
                  g_timer)
-    want = dict({n: 0 for n in every}, block_step=NSTEP * (lld - 1))
+    want = dict({n: 0 for n in every}, block_step=NSTEP * (lld - 1),
+                bpopt_fit=NSTEP)
     check(r["launches"] == want, f"box {box} SCF launches {r['launches']}")
     for f in ("block_step[wavefront]",):
         records[f]["launches"] = r["launches"]["block_step"]
@@ -2401,6 +2430,99 @@ def multi_rank_phase(dev, records, big, ranks_device="cuda",
     say(13, f"phase 13 in {time.perf_counter() - t0:.1f} s")
 
 
+def terminator_phase(dev, records):
+    """Phase 14: the terminator fits on the card (``bpopt_fit``) against
+    the NumPy route, on the box-30 preset's block chains (nsp 2); fills
+    ``records["bpopt_fit"]``."""
+    from rslmtoasa_tpu_torch.models.presets import build_synthetic_bcc
+    from rslmtoasa_tpu_torch.ops import terminator
+    from rslmtoasa_tpu_torch.ops.block_lanczos import (
+        BlockOperator,
+        block_lanczos,
+        block_start_vectors,
+        zsqr,
+    )
+    from rslmtoasa_tpu_torch.physics.greens import get_terminf
+
+    t0 = time.perf_counter()
+    bench = build_synthetic_bcc(device=dev, nsp=2, **PRESET)
+    hb = bench.ham
+    lld = bench.cfg.control.lld
+    n = lld - 1
+    op = BlockOperator(hb.ee, hb.iz, hb.cols, hb.lsham).to(dev)
+    starts = list(range(0, op.kk, op.kk // max(TERMINATOR_R)))[
+        :max(TERMINATOR_R)]
+    psi0 = block_start_vectors(op.kk, starts, dev)
+    a_b, b2_b = (t.cpu().numpy() for t in block_lanczos(op, psi0, lld))
+    b_b = zsqr(b2_b)
+    del bench, op, psi0
+    say(14, f"box-30 block chains: lld {lld}, R = {len(starts)}, in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    def chains(x):
+        return torch.as_tensor(np.ascontiguousarray(
+            x.real.transpose(1, 2, 3, 0).reshape(-1, lld)), device=dev)
+
+    # the Sturm counts the kernel runs, held on the NaN chain: 301
+    # centring steps of 50 counts (emami's first phase out of steps)
+    nan_a = np.full((1, lld), 0.1)
+    nan_a[0, 3] = np.nan
+    nan_t = torch.as_tensor(nan_a, device=dev)
+    _, fail = terminator.bpopt_fit(nan_t, nan_t, n)
+    check(int(fail[0]) == 1 and int(terminator.sturm_counts(
+        nan_t, nan_t, n)[0]) == 301 * 50,
+        "the NaN chain runs out of centring steps")
+    rec = records["bpopt_fit"]  # its launches from phase 7
+    rec.update(max_abs_err=0.0, bound_by="latency", library_ms=None)
+    for r in TERMINATOR_R:
+        a, b = a_b[:, :r], b_b[:, :r]
+        host = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            want = get_terminf(a, b)
+            host.append(time.perf_counter() - t1)
+        ad, bd = (torch.as_tensor(x, device=dev) for x in (a, b))
+        launches = terminator.bpopt_fit.launches
+        got = get_terminf(ad, bd)
+        check(terminator.bpopt_fit.launches == launches + 1,
+              "one launch a get_terminf")
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              f"the card's fits at R = {r} equal the NumPy route's")
+        call = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            get_terminf(ad, bd)
+            call.append(time.perf_counter() - t1)
+        ca, cb = chains(a), chains(b)
+        ms = cuda_ms(lambda: terminator.bpopt_fit(ca, cb, n, 18), iters=10)
+        # the latency bound: the slowest chain's Sturm counts, as the
+        # kernel counts them, each n - 1 dependent levels, at one level's
+        # latency timed apart: one thread's chain of levels on the slowest
+        # chain's own finite operands, at its fitted a_inf
+        counts = terminator.sturm_counts(ca, cb, n).cpu().numpy()
+        k = int(counts.argmax())
+        fit, _ = terminator.bpopt_fit(ca[k:k + 1], cb[k:k + 1], n)
+        z, zb = ca[k, :n].contiguous(), cb[k, :n].contiguous()
+        check(bool(torch.isfinite(z).all() and torch.isfinite(zb).all()),
+              "the slowest chain is finite")
+        e = float(fit[0, 0])
+        level_ns = 1e6 * cuda_ms(lambda: terminator.sturm_steps(
+            z, zb, e, STURM_REPS), iters=5) / (STURM_REPS * (n - 1))
+        bound = 1e-6 * level_ns * int(counts.max()) * (n - 1)
+        say(14, f"R = {r}, C = {ca.shape[0]}: kernel {ms:.4f} ms, latency "
+                f"bound {bound:.4f} ms ({100 * bound / ms:.1f} %: the "
+                f"slowest chain's {counts.max()} Sturm counts of {n - 1} "
+                f"dependent levels at {level_ns:.2f} ns a level, timed on "
+                f"one thread on its operands; mean {counts.mean():.1f} "
+                f"counts a chain); get_terminf on the card "
+                f"{1e3 * min(call):.3f} ms (min of 5), NumPy route "
+                f"{1e3 * min(host):.1f} ms (min of 3; "
+                f"{', '.join(f'{1e3 * h:.1f}' for h in host)}), bit-equal")
+        rec.update(ms=ms, plain_ms=1e3 * min(host), bound_ms=bound)
+    say(14, f"phase 14 took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2419,6 +2541,7 @@ def main():
     from rslmtoasa_tpu_torch.ops import block_kernels as bk
     from rslmtoasa_tpu_torch.ops import cuda_build
     from rslmtoasa_tpu_torch.ops import haydock_kernels as hk
+    from rslmtoasa_tpu_torch.ops import terminator
     from rslmtoasa_tpu_torch.ops.block_lanczos import (
         BlockOperator,
         block_lanczos,
@@ -2460,14 +2583,15 @@ def main():
     # 1. build -------------------------------------------------------
     # every source at once: one nvcc per CUDA source, g++ for the solver
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         jobs = {hk.LIBRARY: pool.submit(hk.build_library),
                 bk.LIBRARY: pool.submit(bk.build_library),
+                terminator.LIBRARY: pool.submit(terminator.build_library),
                 native.LIBRARY: pool.submit(native.get_lib)}
         logs = {lib: job.result() for lib, job in jobs.items()}
     say(1, "built " + ", ".join(os.path.relpath(lib) for lib in logs)
         + f" in {time.perf_counter() - t0:.1f} s")
-    for lib in (hk.LIBRARY, bk.LIBRARY):
+    for lib in (hk.LIBRARY, bk.LIBRARY, terminator.LIBRARY):
         for line in logs[lib].splitlines():
             if "spill" in line or ("ptxas" in line and (
                     "registers" in line or "Compiling" in line)):
@@ -2475,6 +2599,8 @@ def main():
     check("spmv_dot_pipelined_kernel" in logs[hk.LIBRARY],
           "ptxas reports K2'")
     check("block_step_kernel" in logs[bk.LIBRARY], "ptxas reports K4")
+    check("bpopt_fit_kernel" in logs[terminator.LIBRARY],
+          "ptxas reports the terminator fit")
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
     dmma = {}
     for lib, knames in ((hk.LIBRARY, ("spmv_dot_kernel",
@@ -2920,7 +3046,8 @@ def main():
     del b2, op
 
     # 7. block and Chebyshev SCFs --------------------------------------
-    every = dict(wrappers, block_step=bk.block_step)
+    every = dict(wrappers, block_step=bk.block_step,
+                 bpopt_fit=terminator.bpopt_fit)
     # the card's batched inverse and complex kernels load or compile on
     # their first call: both Green functions once here, on a tiny input, so
     # that no SCF's timer sections carry it
@@ -2953,6 +3080,8 @@ def main():
             out = {n: 0 for n in every}
             if device != "cpu" and not plain:
                 out["block_step"] = niter * per_it
+                # the terminator fits: one launch a block iteration
+                out["bpopt_fit"] = niter * (spec["recur"] == "block")
             return out
 
         res, engine = {}, {}
@@ -2977,7 +3106,8 @@ def main():
                                if v > 0.0005)
                    + f"; etot {float(r['etot'])!r} fermi "
                      f"{float(r['fermi'])!r}; K4 launches "
-                     f"{r['launches']['block_step']}")
+                     f"{r['launches']['block_step']}, fits "
+                     f"{r['launches']['bpopt_fit']}")
         # a copy of the SCF after one iteration repeats the second on its
         # own engine: the copy carries the whole SCF state
         same = second_iteration(res["cuda-plain"]["snap"], dev, True, every)
@@ -3034,6 +3164,9 @@ def main():
         if case == "block":
             records["block_step"]["launches"] = res["cuda"]["launches"][
                 "block_step"]
+            # phase 14 fills the rest
+            records["bpopt_fit"] = dict(
+                launches=res["cuda"]["launches"]["bpopt_fit"])
     say(7, f"bars unmet: {len(unmet)}"
         + "".join(f"; {u}" for u in unmet))
     check(not misses, "; ".join(misses))
@@ -3059,6 +3192,9 @@ def main():
     # 13. ranks on the one card -----------------------------------------
     multi_rank_phase(dev, records, big)
     del big
+
+    # 14. the terminator fits -------------------------------------------
+    terminator_phase(dev, records)
     check("jax" not in sys.modules, "no JAX imported")
 
     kernels = [dict(name=n, route="cuda", source=SOURCES[n],
@@ -3067,7 +3203,7 @@ def main():
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"])
                for n, r in records.items()]
-    say(14, f"total {time.perf_counter() - t_start:.1f} s")
+    say(15, f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -9,7 +9,7 @@ post_processing_exchange`` :816-951):
   ``(kk+1, 18, 18 R)`` and recurred through ``parallel/dispatch.py`` into
   ``BlockOperator`` and K4 (block or Chebyshev);
 * the intersite Green functions Gij/Gji from the chains: one
-  ``get_terminf`` (host) and one batched ``bgreen``, or one
+  ``get_terminf`` and one batched ``bgreen``, or one
   ``chebyshev_green``, on the device, then the four-chain combination and
   the n/x/y/z spin components as tensor ops there (``green.f90
   calculate_intersite_gf`` :425-470);
@@ -252,7 +252,7 @@ class ExchangeCalculation:
 
     def intersite_gf(self, emesh):
         """Gij/Gji per pair on the device from the live chains of ``a_b`` /
-        ``b_b`` (one ``get_terminf`` on the host, one ``bgreen``) or of
+        ``b_b`` (one ``get_terminf``, one ``bgreen``) or of
         ``mu`` (one ``chebyshev_green``): ``gij_full``/``gji_full`` (njij,
         18, 18, NE) and the spin components ``comps_i``/``comps_j``, dicts
         of (njij, 9, 9, NE) keyed 'n', 'x', 'y', 'z' (the JAX package's
@@ -264,8 +264,12 @@ class ExchangeCalculation:
                                 self.device, host=False)
         else:
             a_b, b_b = self.a_b[:, live], self.b_b[:, live]
-            with g_timer.section("terminators"):  # host
-                self.a_inf, self.b_inf = get_terminf(a_b, b_b)
+            # the fits on the device (the plain engine's on the host)
+            on = "cpu" if self.sys.plain else self.device
+            with g_timer.section("terminators"):
+                self.a_inf, self.b_inf = get_terminf(
+                    torch.as_tensor(a_b, device=on),
+                    torch.as_tensor(b_b, device=on))
             g = bgreen(a_b, b_b, self.a_inf, self.b_inf, emesh.ene,
                        self.device, sym_term=self.cfg.control.sym_term,
                        host=False)

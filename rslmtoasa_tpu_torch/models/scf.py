@@ -21,6 +21,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..ops.block_lanczos import zsqr
 from ..ops.chebyshev import chebyshev_green
@@ -200,9 +201,14 @@ class SelfConsistency:
             emesh = EnergyMesh.build(cfg.energy, fermi=self.fermi)
             sys.emesh = emesh
             if recur == "block":
-                with g_timer.section("terminators"):  # host
-                    b_b = zsqr(b2_b)
-                    a_inf, b_inf = get_terminf(a_b, b_b)
+                with g_timer.section("terminators"):
+                    b_b = zsqr(b2_b)  # host
+                    # the fits on the recursion's device (the plain
+                    # engine's on the host)
+                    on = "cpu" if sys.plain else sys.device
+                    a_inf, b_inf = get_terminf(
+                        torch.as_tensor(a_b, device=on),
+                        torch.as_tensor(b_b, device=on))
                 with g_timer.section("green-function"):
                     g0 = bgreen(a_b, b_b, a_inf, b_inf, emesh.ene,
                                 sys.device, sym_term=cfg.control.sym_term)

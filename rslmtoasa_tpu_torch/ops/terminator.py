@@ -6,14 +6,34 @@ of a finite tridiagonal chain by iteratively centering the chain and
 bisecting for the extremal eigenvalues of the symmetric tridiagonal matrix
 (Sturm-sequence counts).  The empirical band-edge handling of
 ``dos%density`` (:248-370) — the 1.01 beta scaling for s-orbitals — is
-applied by the caller.
+applied by the caller, or by :func:`terminf_guards` for the block chains.
+
+:func:`bpopt_fit` is the fit of many chains on the recursion's device: a
+CUDA tensor launches the kernel of ``csrc/terminator.cu`` (``sm_90a``,
+plain C interface, loaded with ctypes, built with nvcc into ``_build/`` at
+first use), one thread a chain, bit for bit :func:`bpopt_batch`; a CPU
+tensor runs :func:`bpopt_batch`, its plain version.  The wrapper counts
+its launches in ``bpopt_fit.launches``.  :func:`sturm_counts` and
+:func:`sturm_steps` serve measurement only.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import os
 from typing import Tuple
 
 import numpy as np
+import torch
+
+from . import cuda_build
+from .haydock_kernels import _check, _ptr, _raise_on, _route, _stream
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "terminator.cu")
+LIBRARY = os.path.join(cuda_build.BUILD_DIR, "libterminator.so")
+_SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use (H100)
 
 
 def emami(a: np.ndarray, b: np.ndarray, n: int) -> Tuple[float, float]:
@@ -227,3 +247,134 @@ def bpopt(a: np.ndarray, rb: np.ndarray, n: int) -> Tuple[float, float, int]:
             break
     rbinf = (bmax - bmin) / 2.0
     return float(ainf), float(rbinf), ifail
+
+
+def terminf_guards(a_inf: np.ndarray, b_inf: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """``get_terminf``'s guards on the fits of R blocks (R, ldim, ldim):
+    NaN -> 0, a zero diagonal entry -> 0.5, and the s-orbitals' (0 and 9)
+    b_inf widened by 1.01 (``recursion.f90`` :2092-2137)."""
+    a_inf = np.where(np.isnan(a_inf), 0.0, a_inf)
+    b_inf = np.where(np.isnan(b_inf), 0.0, b_inf)
+    for n in range(a_inf.shape[0]):
+        for j in range(a_inf.shape[1]):
+            if a_inf[n, j, j] == 0.0:
+                a_inf[n, j, j] = 0.5
+            if b_inf[n, j, j] == 0.0:
+                b_inf[n, j, j] = 0.5
+        b_inf[n, 0, 0] *= 1.01
+        b_inf[n, 9, 9] *= 1.01
+    return a_inf, b_inf
+
+
+# ----------------------------------------------------------------------
+# the fits on the device
+def build_library() -> str:
+    """Compile ``csrc/terminator.cu`` into ``_build/libterminator.so``;
+    returns nvcc's ``-Xptxas -v`` output."""
+    return cuda_build.build(SOURCE, LIBRARY)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    cuda_build.ensure(SOURCE, LIBRARY)
+    lib = ctypes.CDLL(LIBRARY)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.bpopt_fit.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+    lib.bpopt_fit.restype = ci
+    lib.bpopt_fit_smem.argtypes = [ci]
+    lib.bpopt_fit_smem.restype = ci
+    lib.sturm_steps.argtypes = [vp, vp, ctypes.c_double, ci, ci, vp, vp]
+    lib.sturm_steps.restype = ci
+    return lib
+
+
+def bpopt_fit_ref(a: torch.Tensor, rb: torch.Tensor, n: int, ldim: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`bpopt_fit`: :func:`bpopt_batch` and, with
+    ``ldim``, :func:`terminf_guards`, in NumPy on the host."""
+    with np.errstate(all="ignore"):
+        ainf, binf, ifail = bpopt_batch(a.numpy(), rb.numpy(), n)
+    if ldim:
+        ainf, binf = (x.reshape(-1) for x in terminf_guards(
+            ainf.reshape(-1, ldim, ldim), binf.reshape(-1, ldim, ldim)))
+    return (torch.from_numpy(np.stack([ainf, binf])),
+            torch.from_numpy(ifail.astype(np.int32)))
+
+
+def bpopt_fit(a: torch.Tensor, rb: torch.Tensor, n: int, ldim: int = 0
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pettifor terminators of C chains, bit for bit :func:`bpopt_batch`.
+
+    a, rb: (C, lld) float64, the chains' diagonal and sqrt(b2)
+    off-diagonal coefficients; ``n`` the levels fitted (``lld - 1`` for
+    ``get_terminf``).  With ``ldim`` the chains are R blocks' (R, ldim,
+    ldim) orbital pairs and :func:`terminf_guards` applies.  Returns fit
+    (2, C) float64, a_inf then b_inf, and ifail (C,) int32, on a's
+    device.
+    """
+    if _route(a) == "cpu":
+        return bpopt_fit_ref(a, rb, n, ldim)
+    fit, ifail = _fit(a, rb, n, ldim, None)
+    bpopt_fit.launches += 1
+    return fit, ifail
+
+
+bpopt_fit.launches = 0
+
+
+def sturm_counts(a: torch.Tensor, rb: torch.Tensor, n: int) -> torch.Tensor:
+    """Measurement only: the Sturm counts (C,) int32 that each chain's fit
+    runs, as :func:`bpopt_fit`'s launch on the card counts them; it counts
+    no launch of the fit."""
+    if _route(a) == "cpu":
+        raise ValueError("sturm_counts: the chains must be on the card")
+    sturms = torch.empty((a.shape[0],), dtype=torch.int32, device=a.device)
+    _fit(a, rb, n, 0, sturms)
+    return sturms
+
+
+def sturm_steps(z: torch.Tensor, b: torch.Tensor, e: float, reps: int
+                ) -> torch.Tensor:
+    """Measurement only: ``reps`` passes over the levels 1 .. n-1 of one
+    chain ``(z, b)`` ((n,) float64 on the card) at ``e`` on one thread of
+    the card, each level's division waiting for the last: the latency of a
+    level of the fit's Sturm counts, timed apart from the fit.  Returns (2,)
+    float64: the last p and the count of levels with p < 0."""
+    if _route(z) == "cpu":
+        raise ValueError("sturm_steps: the chain must be on the card")
+    n = z.shape[0]
+    _check(z, "z", torch.float64, (n,), z.device)
+    _check(b, "b", torch.float64, (n,), z.device)
+    out = torch.empty((2,), dtype=torch.float64, device=z.device)
+    with torch.cuda.device(z.device):
+        err = _library().sturm_steps(_ptr(z), _ptr(b), e, n, reps, _ptr(out),
+                                     _stream(z.device))
+    _raise_on(err, "sturm_steps")
+    return out
+
+
+def _fit(a, rb, n, ldim, sturms):
+    """The launch of the fit on the card; returns (fit, ifail)."""
+    dev = a.device
+    c, lld = a.shape
+    if c == 0 or not 1 <= n <= lld or (ldim and (ldim < 10
+                                                 or c % (ldim * ldim))):
+        raise ValueError(f"bpopt_fit: C={c} chains of lld={lld} at n={n} "
+                         f"(1 <= n <= lld), ldim={ldim} (0, or at least 10 "
+                         f"and dividing C into blocks)")
+    _check(a, "a", torch.float64, (c, lld), dev)
+    _check(rb, "rb", torch.float64, (c, lld), dev)
+    lib = _library()
+    if lib.bpopt_fit_smem(n) > _SMEM_LIMIT:
+        raise ValueError(f"bpopt_fit: {n} levels need "
+                         f"{lib.bpopt_fit_smem(n)} B of shared memory, over "
+                         f"the {_SMEM_LIMIT} B a block may use")
+    fit = torch.empty((2, c), dtype=torch.float64, device=dev)
+    ifail = torch.empty((c,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.bpopt_fit(_ptr(a), _ptr(rb), _ptr(fit), _ptr(ifail),
+                            None if sturms is None else _ptr(sturms), c, lld,
+                            n, ldim, _stream(dev))
+    _raise_on(err, "bpopt_fit")
+    return fit, ifail

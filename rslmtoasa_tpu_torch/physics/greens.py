@@ -11,7 +11,10 @@ Implements the block path of ``source/green.f90``:
   :1191-1339): a chain of 18x18 inversions, each level one batched torch
   inverse over all rec atoms and energies on the recursion's device.
 
-The terminator fits stay NumPy on the host (324 R scalar fits).
+The terminator fits run where their inputs live: on tensors of the
+recursion's card one kernel launch fits every chain (``ops/terminator.py
+bpopt_fit``), bit for bit the NumPy fits that NumPy arrays and CPU
+tensors take.
 """
 
 from __future__ import annotations
@@ -21,41 +24,30 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..ops.terminator import bpopt_batch
+from ..ops.terminator import bpopt_fit
 
 
-def get_terminf(a_b: np.ndarray, b_b: np.ndarray
-                ) -> Tuple[np.ndarray, np.ndarray]:
+def get_terminf(a_b, b_b) -> Tuple[np.ndarray, np.ndarray]:
     """Terminator coefficients for block chains.
 
-    a_b, b_b: (lld, R, 18, 18) — b_b must already hold B = sqrt(B^2)
+    a_b, b_b: (lld, R, 18, 18) NumPy arrays or tensors, complex or real
+    (the fits read the real parts) — b_b must already hold B = sqrt(B^2)
     (i.e. after :func:`~rslmtoasa_tpu_torch.ops.block_lanczos.zsqr`).
-    Returns (a_inf, b_inf) of shape (R, 18, 18).
+    The fits run on the inputs' device (:func:`bpopt_fit`: one launch on
+    the card, NumPy on the host).  Returns (a_inf, b_inf) of shape
+    (R, 18, 18), host NumPy.
     """
-    lld, r = a_b.shape[0], a_b.shape[1]
-    ldim = a_b.shape[2]
-    # chains: (R*18*18, lld) over the real parts
-    aa = np.ascontiguousarray(
-        a_b.real.transpose(1, 2, 3, 0).reshape(-1, lld)
-    )
-    bb = np.ascontiguousarray(
-        b_b.real.transpose(1, 2, 3, 0).reshape(-1, lld)
-    )
-    with np.errstate(all="ignore"):
-        ainf, binf, _ = bpopt_batch(aa, bb, lld - 1)
-    a_inf = ainf.reshape(r, ldim, ldim)
-    b_inf = binf.reshape(r, ldim, ldim)
-    a_inf = np.where(np.isnan(a_inf), 0.0, a_inf)
-    b_inf = np.where(np.isnan(b_inf), 0.0, b_inf)
-    for n in range(r):
-        for j in range(ldim):
-            if a_inf[n, j, j] == 0.0:
-                a_inf[n, j, j] = 0.5
-            if b_inf[n, j, j] == 0.0:
-                b_inf[n, j, j] = 0.5
-        b_inf[n, 0, 0] *= 1.01
-        b_inf[n, 9, 9] *= 1.01
-    return a_inf, b_inf
+    lld, r, ldim = a_b.shape[:3]
+
+    def chains(x):  # (R*18*18, lld) over the real parts
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.array(x))  # a copy: x may be read-only
+        return x.real.permute(1, 2, 3, 0).reshape(-1, lld).to(
+            torch.float64).contiguous()
+
+    fit, _ = bpopt_fit(chains(a_b), chains(b_b), lld - 1, ldim)
+    fit = fit.view(2, r, ldim, ldim).cpu().numpy()
+    return fit[0], fit[1]
 
 
 def bgreen(a_b: np.ndarray, b_b: np.ndarray, a_inf: np.ndarray,

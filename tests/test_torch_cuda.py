@@ -1,5 +1,5 @@
-"""The CUDA kernels (Haydock K1'-K3', block step K4) against their plain
-versions, and the Green functions, the exchange pair recursion, the Kubo
+"""The CUDA kernels (Haydock K1'-K3', block step K4, the terminator fits)
+against their plain versions, and the Green functions, the exchange pair recursion, the Kubo
 moments and the orbital moment's trace against the same torch code on the
 CPU, and the active-set wavefront through the kernels against its plain
 version and the full-width route, on the card; the kernels on row-slab
@@ -21,6 +21,7 @@ from rslmtoasa_tpu_torch.models.conductivity import (
     build_velocity_operators,
 )
 from rslmtoasa_tpu_torch.models import orbital
+from rslmtoasa_tpu_torch.models.scf import SelfConsistency
 from rslmtoasa_tpu_torch.models.exchange import (
     ExchangeCalculation,
     pair_start_vectors,
@@ -36,7 +37,7 @@ from rslmtoasa_tpu_torch.models.presets import (
 )
 from rslmtoasa_tpu_torch.ops import block_kernels as bk
 from rslmtoasa_tpu_torch.ops import haydock_kernels as hk
-from rslmtoasa_tpu_torch.ops import kubo, wavefront
+from rslmtoasa_tpu_torch.ops import kubo, terminator, wavefront
 from rslmtoasa_tpu_torch.ops.block_lanczos import (
     BlockOperator,
     block_lanczos,
@@ -53,6 +54,7 @@ from rslmtoasa_tpu_torch.ops.lanczos import (
     scalar_start_vectors,
 )
 from rslmtoasa_tpu_torch.physics.greens import bgreen, get_terminf
+from test_torch_terminator import LLDS, edge_chains
 
 pytestmark = pytest.mark.gpu
 BAR = 1e-12
@@ -498,6 +500,116 @@ def test_bgreen_eta_on_card_matches_cpu(b2_coefficients, card):
 
 
 # ----------------------------------------------------------------------
+# the terminator fits on the card
+def _terminf_on_card(a_b, b_b, card):
+    """get_terminf on the card's tensors, with its one launch checked."""
+    n = terminator.bpopt_fit.launches
+    got = get_terminf(torch.as_tensor(a_b, device=card),
+                      torch.as_tensor(b_b, device=card))
+    assert terminator.bpopt_fit.launches == n + 1
+    return got
+
+
+@pytest.mark.parametrize("recur, plain", [("block", False), ("block", True),
+                                          ("chebyshev", False)])
+def test_scf_iteration_fits_on_card(card, recur, plain, tmp_path):
+    """One SCF iteration on the card: the block recursion's fits are one
+    launch, the plain engine's and the Chebyshev SCF's none."""
+    sys_ = build_synthetic_bcc(rc=8.0, ndim=2000, lld=8, nsp=2, device=card)
+    sys_.cfg.control.recur = recur
+    sys_.plain = plain
+    sys_.cfg.energy.energy_min, sys_.cfg.energy.energy_max = -1.5, 1.0
+    n = terminator.bpopt_fit.launches
+    SelfConsistency(sys_, workdir=str(tmp_path)).run(nstep=1)
+    assert terminator.bpopt_fit.launches - n == (recur == "block"
+                                                 and not plain)
+
+
+def test_terminf_kernel_matches_numpy_on_b2(b2_coefficients, card):
+    a_b, b_b, a_inf, b_inf, _ = b2_coefficients
+    got = _terminf_on_card(a_b, b_b, card)
+    for g, w in zip(got, (a_inf, b_inf)):
+        assert isinstance(g, np.ndarray) and np.array_equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def bcc_chains(card):
+    """(a_b, b_b) of 21 start blocks of the bcc preset at lld 20, nsp 2,
+    recurred through K4."""
+    sys_ = build_synthetic_bcc(rc=12.0, ndim=4000, lld=20, nsp=2,
+                               device="cpu")
+    hb = sys_.ham
+    op = BlockOperator(hb.ee, hb.iz, hb.cols, hb.lsham).to(card)
+    psi0 = block_start_vectors(op.kk, list(range(0, 210, 10)), card)
+    a_b, b2_b = (t.cpu().numpy() for t in block_lanczos(op, psi0, 20))
+    return a_b, zsqr(b2_b)
+
+
+@pytest.mark.parametrize("r", [1, 21])
+def test_terminf_kernel_matches_numpy_on_bcc(bcc_chains, card, r):
+    a_b, b_b = (x[:, :r] for x in bcc_chains)
+    want = get_terminf(a_b, b_b)
+    got = _terminf_on_card(a_b, b_b, card)
+    for g, w in zip(got, want):
+        assert g.shape == (r, 18, 18) and np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("lld", LLDS)
+def test_bpopt_fit_kernel_matches_numpy_on_edge_chains(card, lld):
+    """Every branch of the fit (the NaN chain, p == 0, both of emami's
+    step caps, the centring's 300-step cap) bit for bit, NaN positions
+    and ifail included; then the same chains as blocks through
+    get_terminf, its guards in the launch."""
+    a, rb = edge_chains(lld)
+    with np.errstate(all="ignore"):
+        ainf, binf, ifail = terminator.bpopt_batch(a, rb, lld - 1)
+    n = terminator.bpopt_fit.launches
+    fit, fail = terminator.bpopt_fit(torch.from_numpy(a).to(card),
+                                     torch.from_numpy(rb).to(card), lld - 1)
+    assert terminator.bpopt_fit.launches == n + 1
+    assert np.array_equal(fit.cpu().numpy(), np.stack([ainf, binf]),
+                          equal_nan=True)
+    assert np.array_equal(fail.cpu().numpy(), ifail) and ifail.any()
+    blocks = [np.tile(x, (-(-324 // len(x)), 1))[:324].T.reshape(
+        lld, 1, 18, 18) for x in (a, rb)]
+    want = get_terminf(*blocks)
+    got = _terminf_on_card(*blocks, card)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+def test_sturm_counts_on_card(card):
+    """The kernel's own count of a chain's Sturm counts: the NaN chain runs
+    301 centring steps of 50, the zero chain one step of 50 (emami's first
+    phase out of steps, then centred), and the count launches no fit."""
+    nan = np.full((1, 20), 0.1)
+    nan[0, 3] = np.nan
+    a = torch.as_tensor(np.concatenate([nan, np.zeros((1, 20))]),
+                        device=card)
+    n = terminator.bpopt_fit.launches
+    counts = terminator.sturm_counts(a, a, 19)
+    assert terminator.bpopt_fit.launches == n
+    assert counts.cpu().tolist() == [301 * 50, 50]
+
+
+def test_sturm_steps_match_numpy(card):
+    """The latency yardstick's chain of levels, bit for bit the fit's Sturm
+    recurrence in NumPy, p carried from pass to pass."""
+    z, b = np.random.default_rng(7).uniform(-0.5, 0.5, (2, 19))
+    b[5] = 0.0
+    e, reps = 0.03, 3
+    p, num = z[0] - e, 0
+    for _ in range(reps):
+        for i in range(1, 19):
+            p = ((z[i] - e) - abs(b[i]) / 2.0 ** -39 if p == 0.0
+                 else (z[i] - e) - b[i] * b[i] / p)
+            num += p < 0.0
+    got = terminator.sturm_steps(torch.as_tensor(z, device=card),
+                                 torch.as_tensor(b, device=card), e, reps)
+    assert got.cpu().tolist() == [p, float(num)]
+
+
+# ----------------------------------------------------------------------
 # the exchange pair recursion
 @pytest.mark.parametrize("hoh", [False, True])
 def test_block_step_kernel_on_pair_start_blocks(block_system, card, hoh):
@@ -526,10 +638,13 @@ def test_pair_recursion_on_card_matches_cpu(card, recur, tmp_path):
         wd = tmp_path / str(device)
         wd.mkdir()
         n = bk.block_step.launches
+        fits = terminator.bpopt_fit.launches
         xc = ExchangeCalculation(sys_, sys_.cfg.lattice.ijpair, str(wd))
         res = xc.run()
         steps = 6 - 1 if recur == "block" else 6 + 1
         assert bk.block_step.launches - n == (steps if device == card else 0)
+        assert terminator.bpopt_fit.launches - fits == (
+            recur == "block" and device == card)
         out.append((xc, res))
     (got, rg), (want, rw) = out
     names = ("mu",) if recur == "chebyshev" else ("a_b", "b_b")
