@@ -15,7 +15,9 @@ per kind.  Set-up runs from the process's start to the end of the
 warm-up job; the window runs jobs in a closed loop from the first timed
 job's start until ``--seconds`` have passed and the job under way has ended.
 With ``--trace 1`` the window runs under ``torch.profiler`` and the line
-carries the per-layer metrics; otherwise the end-to-end ones.
+carries the per-layer metrics; otherwise the end-to-end ones.  A cell on
+more than one card runs one process a card (:mod:`benchmark.ranks`); the
+comparison and the line stay in the process the command started.
 """
 
 from __future__ import annotations
@@ -145,9 +147,16 @@ class Measured:
             / self.n_jobs
 
     def k4_bound_s(self) -> float:
-        """The K4 bound of the window's jobs (:mod:`roofline`)."""
+        """The K4 bound of the window's jobs (:mod:`roofline`) on the card
+        that is traced.  On N cards that is rank 0's: the dispatch shards
+        R >= N chains over the ranks and rank 0 recurs the first
+        ceil(R / N) (padding copies of chain 0 go to the last ranks); with
+        fewer chains than ranks each rank recurs all of them."""
         box = self.cell.box()
         chains, launches, gram = self.cell.kind.roofline(self.cell, box)
+        world = int(self.cell.workload["chips"])
+        if len(chains) >= world:
+            chains = chains[:-(-len(chains) // world)]
         per_job = roofline.recursion_bound(box, chains, launches, 18, gram)
         return per_job * self.n_jobs
 
@@ -205,9 +214,12 @@ def draw(seed: int, n: int) -> int:
 
 
 # ----------------------------------------------------------------------
-def window(job, seconds: float, device, traced: bool):
+def window(job, seconds: float, device, traced: bool, agree=None):
     """Run whole jobs until ``seconds`` have passed; (walls, window_s,
-    profile or None)."""
+    profile or None).  On several cards ``agree(stop)`` (:mod:`ranks`) is
+    the ranks' stop flag, set by rank 0's clock: the ranks start the window
+    together, and after each job every rank learns whether it goes on, so
+    a job's wall runs until its slowest rank has finished it."""
     prof = None
     if traced:
         from torch.profiler import ProfilerActivity, profile
@@ -218,6 +230,8 @@ def window(job, seconds: float, device, traced: bool):
         prof = profile(activities=acts)
         prof.__enter__()
     walls = []
+    if agree is not None:
+        agree(False)
     span = torch.profiler.record_function("bench.window") if traced else None
     if span is not None:
         span.__enter__()
@@ -228,8 +242,12 @@ def window(job, seconds: float, device, traced: bool):
         job.run()
         _sync(device)
         now = time.perf_counter()
+        stop = now >= deadline
+        if agree is not None:
+            stop = agree(stop)
+            now = time.perf_counter()
         walls.append(now - t)
-        if now >= deadline:
+        if stop:
             break
     window_s = time.perf_counter() - start
     if span is not None:
@@ -297,7 +315,13 @@ def control_readings(cell: Cell, state0: dict, ref: dict, device) -> dict:
 def measure(cell: Cell, seed: int, seconds: float, traced: bool, device,
             t0: float) -> dict:
     """One whole run: the result line's object."""
-    m, records, slots = execute(cell, seed, seconds, traced, device, t0)
+    if int(cell.workload["chips"]) > 1:
+        from . import ranks
+
+        m, records, slots = ranks.execute(cell, seed, seconds, traced,
+                                          device, t0)
+    else:
+        m, records, slots = execute(cell, seed, seconds, traced, device, t0)
     found = forbidden_modules()
     if found:
         raise RuntimeError(f"the process holds {', '.join(found)}")
@@ -355,7 +379,8 @@ def main(argv=None, t0: Optional[float] = None, root: Optional[str] = None,
         raise NoCard(f"{args.workload} needs {chips} card(s); found "
                      f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
     if device == "cuda":
-        torch.cuda.set_device(0)
+        if chips == 1:  # the ranks of a larger cell take their own cards
+            torch.cuda.set_device(0)
         print(f"card: {power_limit()}", file=sys.stderr)
     res = measure(cell, args.seed, args.seconds, bool(args.trace), device, t0)
     m, rows = res.pop("_measured"), res.pop("_rows")
@@ -365,6 +390,10 @@ def main(argv=None, t0: Optional[float] = None, root: Optional[str] = None,
         raise RuntimeError(f"the process holds {', '.join(found)}")
     print(f"jobs {m.n_jobs} in {m.window_s:.3f} s; K4 launches "
           f"{m.k4_launches}; setup {m.setup_s:.3f} s", file=sys.stderr)
+    for r, info in enumerate(getattr(m, "ranks", ())):
+        print(f"rank {r}: peak {info['peak']} B; K4 launches "
+              f"{info['k4_launches']}; routes {info['routes']}",
+              file=sys.stderr)
     if m.trace is not None:
         print(f"device busy {m.trace.busy_s:.4f} s of {m.trace.window_s:.4f}"
               f" s", file=sys.stderr)

@@ -1,8 +1,9 @@
 """The comparison that decides ``correct`` fails what it has to: the
 control (the reference a precision lower, in the program's place) at the
 test's size, and the faults a cell can have, planted under a run that skips
-the look for a card.  The cells run on one card, so the fault of an
-exchange between cards left out has no cell here."""
+the look for a card.  The cells run on one card; the fault of an exchange
+between cards left out is planted in a four-rank cell in
+``test_bench_ranks.py``."""
 
 import numpy as np
 import pytest

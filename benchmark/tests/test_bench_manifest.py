@@ -1,7 +1,7 @@
 """``BENCHMARK.json`` keeps to its format: its keys, names,
-units, bounds, the window's length against the check's time, and every
-per-layer metric listing only cells that report the end-to-end metric it
-moves."""
+units, the cards a cell asks for, bounds, the window's length against the
+check's time, and every per-layer metric listing only cells that report
+the end-to-end metric it moves."""
 
 import json
 import os
@@ -26,7 +26,10 @@ def test_keys():
         assert all(NAME.match(k) for k in c["reduced"])
     for w in M["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    # a quarter of the cells, rounded down, may take four cards; one always
+    four = sum(w["chips"] == 4 for w in M["workloads"])
+    assert four <= max(1, len(M["workloads"]) // 4)
     for e in M["end_to_end"] + M["per_layer"]:
         assert NAME.match(e["name"]) and UNIT.match(e["unit"])
         assert e["better"] in ("lower", "higher")
