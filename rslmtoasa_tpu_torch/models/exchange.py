@@ -5,9 +5,11 @@ post_processing_exchange`` :816-951):
 
 * pair start blocks (``recur_b_ij`` :1655-1745): the superpositions
   (i+j), (i-j), (i+ij), (i-ij) of each pair i != j, and the block of atom
-  i alone for i == j, built on the system's device in the port's layout
-  ``(kk+1, 18, 18 R)`` and recurred through ``parallel/dispatch.py`` into
-  ``BlockOperator`` and K4 (block or Chebyshev);
+  i alone for i == j, in compact form (``StartBlocks``: the start rows and
+  each chain's multiple of I on them), recurred through
+  ``parallel/dispatch.py`` into ``BlockOperator`` and K4 (block or
+  Chebyshev); each route builds on the system's device only the rows and
+  chains it recurs (the wavefront its first stage, a rank its chains);
 * the intersite Green functions Gij/Gji from the chains: one
   ``get_terminf`` and one batched ``bgreen``, or one
   ``chebyshev_green``, on the device, then the four-chain combination and
@@ -39,7 +41,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ..ops.block_lanczos import zsqr
+from ..ops.block_lanczos import StartBlocks, zsqr
 from ..ops.chebyshev import chebyshev_green
 from ..parallel.dispatch import block_lanczos_auto, chebyshev_moments_auto
 from ..physics.energy_mesh import EnergyMesh
@@ -84,24 +86,19 @@ def pair_chains(pairs: np.ndarray) -> np.ndarray:
                      for n in range(1 if i == j else 4)], dtype=np.int64)
 
 
-def pair_start_vectors(kk: int, pairs: np.ndarray,
-                       device) -> torch.Tensor:
+def pair_start_blocks(kk: int, pairs: np.ndarray, device) -> StartBlocks:
     """Start blocks of the live chains of 0-based ``pairs`` (in
-    :func:`pair_chains` order) on ``device``: (kk+1, 18, 18 R) complex128,
-    the JAX package's ``pair_start_vectors`` without its dead chains, in the
-    port's layout."""
-    chains = pair_chains(pairs)
-    psi0 = torch.zeros((kk + 1, 18, 18 * len(chains)),
-                       dtype=torch.complex128, device=device)
-    eye = torch.eye(18, dtype=torch.complex128, device=device)
-    for r, ch in enumerate(chains):
-        i, j = pairs[ch // 4]
-        asign, bsign = (1.0, 1.0) if i == j else SIGNS[ch % 4]
-        cs = slice(18 * r, 18 * (r + 1))
-        # assignment, not +=: the reference overwrites when i == j
-        psi0[i, :, cs] = asign * eye
-        psi0[j, :, cs] = bsign * eye
-    return psi0
+    :func:`pair_chains` order) in compact form: the block of atom i for
+    i == j, else ``SIGNS`` times I on atoms i and j.  Made dense on
+    ``device``, (kk+1, 18, 18 R) complex128, they are the JAX package's
+    ``pair_start_vectors`` without its dead chains, in the port's layout."""
+    chains = []
+    for ch in pair_chains(pairs):
+        i, j = (int(x) for x in pairs[ch // 4])
+        # one row where i == j: the reference overwrites it
+        chains.append([(i, 1.0)] if i == j else
+                      list(zip((i, j), SIGNS[ch % 4])))
+    return StartBlocks(kk, chains, device)
 
 
 def _spread(live: np.ndarray, chains: np.ndarray, nchain: int) -> np.ndarray:
@@ -203,7 +200,8 @@ class ExchangeCalculation:
         tables = dict(hoh=hoh, hso=hb.eeo if hoh else None,
                       enim=hb.enim if hoh else None, plain=sys.plain)
         with g_timer.section("pair-recursion"):
-            psi0 = pair_start_vectors(cl.kk, self.pairs, self.device)
+            # compact: each route of the dispatch builds what it recurs
+            psi0 = pair_start_blocks(cl.kk, self.pairs, self.device)
             if cfg.control.recur == "chebyshev":
                 # pair-resolved Chebyshev moments (chebyshev_recur_ij
                 # :2376-2494), unguarded as the reference's pair recursion

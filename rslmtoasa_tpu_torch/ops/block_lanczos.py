@@ -34,6 +34,7 @@ from torch import nn
 from . import block_kernels as bk
 from .haydock_kernels import prefix_tables
 from .lanczos import as_table, check_stages, grow_rows
+from ..utils.timer import g_timer
 
 
 def port_layout(psi: np.ndarray) -> np.ndarray:
@@ -220,6 +221,91 @@ def block_start_vectors(kk: int, atom_indices: Sequence[int],
     for n, j in enumerate(atom_indices):
         psi0[j, :, 18 * n:18 * (n + 1)] = eye
     return psi0
+
+
+class StartBlocks:
+    """Start blocks in compact form: R chains of d x d blocks, chain r
+    holding ``coef * I`` on each row of ``chains[r]`` (``[(row, coef),
+    ...]``, written in that order) and zeros elsewhere on a (kk+1)-row
+    cluster.  The recursion's routes materialise only what they recur
+    (:meth:`dense`, :meth:`on_rows`, :meth:`select`), each in the timer's
+    span ``start-blocks``; every block is written as ``coef * I``, so each
+    form holds the dense tensor's bits on its rows.  ``shape`` and
+    ``device`` are the dense tensor's, so the dispatch reads either."""
+
+    def __init__(self, kk: int, chains, device, d: int = 18):
+        self.kk, self.d = int(kk), int(d)
+        self.chains = [tuple((int(row), coef) for row, coef in ch)
+                       for ch in chains]
+        self.device = torch.device(device)
+        if any(not 0 <= row < self.kk for ch in self.chains
+               for row, _ in ch):
+            raise ValueError(f"start rows outside the cluster's {self.kk}")
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        return (self.kk + 1, self.d, self.d * len(self.chains))
+
+    @property
+    def rows(self) -> np.ndarray:
+        """The rows where some chain's block is nonzero, ascending."""
+        return np.unique(np.array([row for ch in self.chains
+                                   for row, coef in ch if coef != 0],
+                                  dtype=np.int64))
+
+    def sector(self, d: int) -> "StartBlocks":
+        """The same chains d wide: a spin sector's cut of ``coef * I`` is
+        ``coef`` times the sector's I."""
+        return StartBlocks(self.kk, self.chains, self.device, d)
+
+    def select(self, idx: Sequence[int]) -> "StartBlocks":
+        """The chains ``idx`` (repeats allowed), in that order."""
+        return StartBlocks(self.kk, [self.chains[int(i)] for i in idx],
+                           self.device, self.d)
+
+    def __getitem__(self, idx) -> "StartBlocks":
+        """``[:, :, a:b]`` as on the dense tensor, where a and b bound whole
+        chains: those chains."""
+        rows, width, cols = idx
+        a, b, step = cols.indices(self.shape[2])
+        if ((rows, width) != (slice(None),) * 2 or step != 1
+                or a % self.d or b % self.d):
+            raise IndexError(f"start blocks take [:, :, a:b] of whole "
+                             f"chains, not {idx!r}")
+        return self.select(range(a // self.d, b // self.d))
+
+    def _place(self, n: int, where) -> torch.Tensor:
+        """(n, d, R d) zeros with each block at row ``where(row)``."""
+        with g_timer.section("start-blocks"):
+            out = torch.zeros((n, self.d, self.d * len(self.chains)),
+                              dtype=torch.complex128, device=self.device)
+            eye = torch.eye(self.d, dtype=torch.complex128,
+                            device=self.device)
+            for r, chain in enumerate(self.chains):
+                cs = slice(self.d * r, self.d * (r + 1))
+                for row, coef in chain:
+                    out[where(row), :, cs] = coef * eye
+            return out
+
+    def dense(self) -> torch.Tensor:
+        """(kk+1, d, R d) on ``device``: the full width's start tensor."""
+        return self._place(self.kk + 1, lambda row: row)
+
+    def on_rows(self, index: np.ndarray, n: int) -> torch.Tensor:
+        """(n+1, d, R d): row ``index[row]`` of the result holds row
+        ``row``'s blocks, row n is zero (a wavefront's first stage, in the
+        plan's order); raises where a start row lies beyond the first n."""
+        pos = np.asarray(index)[self.rows]
+        if pos.size and pos.max() >= n:
+            raise ValueError("psi0 has nonzero rows outside the plan's "
+                             "first stage")
+        return self._place(n + 1, lambda row: int(index[row]))
+
+
+def dense_start(psi0) -> torch.Tensor:
+    """``psi0`` as the (kk+1, d, R d) tensor: a tensor as it is,
+    :class:`StartBlocks` made dense."""
+    return psi0.dense() if isinstance(psi0, StartBlocks) else psi0
 
 
 def zsqr(b2_b: np.ndarray) -> np.ndarray:

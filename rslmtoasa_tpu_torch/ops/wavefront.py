@@ -43,7 +43,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .block_lanczos import BlockOperator, block_lanczos, pad_row
+from .block_lanczos import (BlockOperator, StartBlocks, block_lanczos,
+                           pad_row)
 from .chebyshev import chebyshev_moments
 from .lanczos import HaydockOperator
 
@@ -154,14 +155,17 @@ def make_plan_chebyshev(cols, kk: int, starts, lld: int, *,
 
 # ----------------------------------------------------------------------
 # device half
-def permuted_start(psi0: torch.Tensor, plan: WavefrontPlan) -> torch.Tensor:
+def permuted_start(psi0, plan: WavefrontPlan) -> torch.Tensor:
     """The first stage's rows of ``psi0`` (kk+1, d, C), in the plan's
     order, with a zero row appended; raises where ``psi0`` has a nonzero
-    row beyond them."""
+    row beyond them.  :class:`~.block_lanczos.StartBlocks` are built on
+    those n0 + 1 rows directly, the same bits as the tensor's rows."""
     kk, n0 = plan.kk, plan.stages[0][0]
     if psi0.shape[0] != kk + 1:
         raise ValueError(f"psi0 has {psi0.shape[0]} rows, the plan kk + 1 "
                          f"= {kk + 1}")
+    if isinstance(psi0, StartBlocks):
+        return psi0.on_rows(plan.inv, n0)
     rows = (psi0 != 0).flatten(1).any(1).nonzero().squeeze(1).cpu().numpy()
     if rows.size and (rows.max() >= kk or plan.inv[rows].max() >= n0):
         raise ValueError("psi0 has nonzero rows outside the plan's first "
@@ -214,8 +218,9 @@ def block_lanczos_wavefront(
     :func:`.block_lanczos.block_lanczos` on a :class:`BlockOperator` of
     these host tables; ``psi0`` (kk+1, d, R d) in the original atom order
     on the recursion's device.  With HoH the plan must reach two hops per
-    step (:func:`make_plan` ``hops_per_step=2``).  Returns host
-    (a_b, b2_b), (lld, R, d, d)."""
+    step (:func:`make_plan` ``hops_per_step=2``).  ``psi0`` may be
+    :class:`~.block_lanczos.StartBlocks`.  Returns host (a_b, b2_b),
+    (lld, R, d, d)."""
     op = _block_operator(hs, lsham, iz, cols, plan, hoh, hso, enim,
                          iz_onsite, nmax, psi0.device)
     a_b, b2_b = block_lanczos(op, permuted_start(psi0, plan), lld,

@@ -32,10 +32,12 @@ Every route returns the full result on every rank.  The TPU engines (the
 multi-site conv engines, df64) are not ported.
 
 The tables come as host arrays (complex128, the JAX package's layouts),
-``psi0`` as a tensor in the port's layout ``(kk+1, d, R d)``; results come
-back as host arrays in the JAX package's layouts.  An impurity's tables
-are the combined rows ``[hall; ee]`` with ``iz`` the per-row index into
-them, ``iz_onsite`` the species of each row and ``nmax`` the per-atom
+``psi0`` as a tensor in the port's layout ``(kk+1, d, R d)`` or, for the
+block and Chebyshev recursions, as :class:`~..ops.block_lanczos.StartBlocks`,
+of which each route builds only the rows and chains it recurs; results
+come back as host arrays in the JAX package's layouts.  An impurity's
+tables are the combined rows ``[hall; ee]`` with ``iz`` the per-row index
+into them, ``iz_onsite`` the species of each row and ``nmax`` the per-atom
 rows in front; the spin sectors cut them like any table.
 """
 
@@ -49,7 +51,8 @@ import numpy as np
 import torch
 
 from ..ops import rowslab, wavefront
-from ..ops.block_lanczos import BlockOperator, block_lanczos
+from ..ops.block_lanczos import (BlockOperator, StartBlocks, block_lanczos,
+                                  dense_start)
 from ..ops.chebyshev import chebyshev_moments
 from ..ops.kubo import VelocityOperator, kubo_moments, plan
 from ..ops.lanczos import HaydockOperator
@@ -67,6 +70,10 @@ _mesh_cache = {"mesh": None, "checked": False}
 ROUTES = ("slab_scalar", "chains_scalar", "slab_block", "chains_block",
           "slab_cheb", "chains_cheb", "units_kubo")
 routes: Counter = Counter()
+#: the routes taken where no mesh is, by name: ``wavefront_`` or ``full_``
+#: (the full width) and the recursion, one a recursion (each spin sector
+#: counts), so that a run on one card sees which route each job took
+local_routes: Counter = Counter()
 
 
 def get_mesh() -> Optional[mesh_mod.Mesh]:
@@ -136,13 +143,14 @@ def _rowslab_wanted(mesh, kk: int, d: int, device: torch.device) -> bool:
     return False
 
 
-def _wavefront_plan(cols, psi0: torch.Tensor, lld: int, hoh: bool,
+def _wavefront_plan(cols, psi0, lld: int, hoh: bool,
                     kind: str = "lanczos"
                     ) -> Optional[wavefront.WavefrontPlan]:
     """Active-set plan for large clusters (create_ll_map analogue,
     recursion.f90:3277-3303), or ``None`` where the full width is taken:
     below ``RSLMTO_WAVEFRONT_KK`` atoms (default 30 000), with no start
-    row or more than :data:`MAX_STARTS` (the nonzero rows of ``psi0``), or
+    row or more than :data:`MAX_STARTS` (the nonzero rows of ``psi0``, a
+    tensor, or the start rows of :class:`StartBlocks`), or
     where the plan's work is not under 0.7 of the full width's (the JAX
     package's ``_wavefront_plan``, ``parallel/dispatch.py`` :131).  With
     ``hoh`` H reaches two hops per application; ``kind="chebyshev"`` plans
@@ -150,12 +158,15 @@ def _wavefront_plan(cols, psi0: torch.Tensor, lld: int, hoh: bool,
     kk = psi0.shape[0] - 1
     if kk < int(os.environ.get("RSLMTO_WAVEFRONT_KK", "30000")):
         return None
-    starts = (psi0[:kk] != 0).flatten(1).any(1).nonzero().squeeze(1)
-    if starts.numel() == 0 or starts.numel() > MAX_STARTS:
+    if isinstance(psi0, StartBlocks):
+        starts = psi0.rows
+    else:
+        starts = (psi0[:kk] != 0).flatten(1).any(1).nonzero().squeeze(1)
+        starts = starts.cpu().numpy()
+    if starts.size == 0 or starts.size > MAX_STARTS:
         return None
     mk = (wavefront.make_plan_chebyshev if kind == "chebyshev"
           else wavefront.make_plan)
-    starts = starts.cpu().numpy()
     with g_timer.section("wavefront-plan"):
         p = mk(np.asarray(cols), kk, starts, lld,
                hops_per_step=2 if hoh else 1)
@@ -182,6 +193,7 @@ def lanczos_auto(hs, iz, cols, psi0: torch.Tensor, lld: int, *,
         a, b2 = run(mesh, hs, iz, cols, psi0, lld, plain=plain, roll=roll)
         return a.cpu().numpy(), b2.cpu().numpy()
     p = _wavefront_plan(cols, psi0, lld, False)
+    local_routes["full_scalar" if p is None else "wavefront_scalar"] += 1
     if p is not None:
         return wavefront.lanczos_coefficients_wavefront(
             hs, iz, cols, psi0, lld, p, plain=plain, roll=roll)
@@ -200,7 +212,7 @@ def _spin_diag(m) -> bool:
             and not np.count_nonzero(m[..., 9:, :9]))
 
 
-def _spin_sectors(hs, lsham, hso, enim, psi0: torch.Tensor):
+def _spin_sectors(hs, lsham, hso, enim, psi0):
     """Collinear spin-sector decoupling (nsp <= 2, no SOC).
 
     When H, eeo, enim, the SOC table and the start blocks are all
@@ -209,14 +221,18 @@ def _spin_sectors(hs, lsham, hso, enim, psi0: torch.Tensor):
     spin-block-diagonal at every step, so running the 9x9 sectors
     separately reproduces the 18x18 recursion to roundoff, for a quarter
     of the SpMV work.  Returns [(hs, lsham, hso, enim, psi0)] per sector,
-    or ``None`` when the problem does not decouple."""
+    or ``None`` when the problem does not decouple.  :class:`StartBlocks`
+    (multiples of I) are spin-block-diagonal and cut into 9-wide ones."""
     if psi0.shape[1] != 18:
         return None
     n = psi0.shape[0]
-    p = psi0.view(n, 18, -1, 18)  # p[i, :, r]: row i of start block r
+    blocks = isinstance(psi0, StartBlocks)
+    if not blocks:
+        p = psi0.view(n, 18, -1, 18)  # p[i, :, r]: row i of start block r
     if not (_spin_diag(hs) and _spin_diag(lsham) and _spin_diag(hso)
             and _spin_diag(enim)
-            and not bool(p[:, :9, :, 9:].any() or p[:, 9:, :, :9].any())):
+            and (blocks or not bool(p[:, :9, :, 9:].any()
+                                    or p[:, 9:, :, :9].any()))):
         return None
 
     def cut(m, sl):
@@ -226,7 +242,8 @@ def _spin_sectors(hs, lsham, hso, enim, psi0: torch.Tensor):
     out = []
     for s in range(2):
         sl = slice(9 * s, 9 * s + 9)
-        ps = p[:, sl, :, sl].reshape(n, 9, -1)
+        ps = (psi0.sector(9) if blocks
+              else p[:, sl, :, sl].reshape(n, 9, -1))
         out.append((cut(hs, sl), cut(lsham, sl), cut(hso, sl),
                     cut(enim, sl), ps))
     return out
@@ -242,7 +259,7 @@ def _spin_assemble(xu, xd):
     return out
 
 
-def block_lanczos_auto(hs, lsham, iz, cols, psi0: torch.Tensor, lld: int, *,
+def block_lanczos_auto(hs, lsham, iz, cols, psi0, lld: int, *,
                        hoh: bool = False, hso=None, enim=None,
                        iz_onsite=None, nmax: int = 0, plain: bool = False):
     """Block recursion of the R start blocks of ``psi0`` on its device, per
@@ -250,7 +267,11 @@ def block_lanczos_auto(hs, lsham, iz, cols, psi0: torch.Tensor, lld: int, *,
     where :func:`_wavefront_plan` engages.  Returns host (a_b, b2_b) of
     shape (lld, R, 18, 18) (or d wide for a d-wide ``psi0``).  Over the
     ranks each sector runs on row slabs where :func:`_rowslab_wanted`, else
-    chain-sharded where :func:`_mesh_for` gives the mesh."""
+    chain-sharded where :func:`_mesh_for` gives the mesh.  ``psi0`` is the
+    (kk+1, d, R d) tensor or :class:`StartBlocks`, of which each route
+    builds what it recurs: the wavefront its first stage's rows, chain
+    sharding the rank's chains, the row slabs and the full width the whole
+    tensor."""
     sec = _spin_sectors(hs, lsham, hso, enim, psi0)
     if sec is not None:
         outs = [block_lanczos_auto(h_, l_, iz, cols, p_, lld, hoh=hoh,
@@ -265,8 +286,8 @@ def block_lanczos_auto(hs, lsham, iz, cols, psi0: torch.Tensor, lld: int, *,
     if _rowslab_wanted(get_mesh(), kk, d, psi0.device):
         routes["slab_block"] += 1
         a_b, b2_b = rowslab.block_lanczos_rowsharded(
-            get_mesh(), hs, lsham, iz, cols, psi0, lld, plain=plain,
-            **tables)
+            get_mesh(), hs, lsham, iz, cols, dense_start(psi0), lld,
+            plain=plain, **tables)
         return a_b.cpu().numpy(), b2_b.cpu().numpy()
     mesh = _mesh_for(psi0.shape[2] // d)
     if mesh is not None:
@@ -276,13 +297,14 @@ def block_lanczos_auto(hs, lsham, iz, cols, psi0: torch.Tensor, lld: int, *,
                                                    plain=plain)
         return a_b.cpu().numpy(), b2_b.cpu().numpy()
     p = _wavefront_plan(cols, psi0, lld, hoh)
+    local_routes["full_block" if p is None else "wavefront_block"] += 1
     if p is not None:
         return wavefront.block_lanczos_wavefront(
             hs, lsham, iz, cols, psi0, lld, p, hoh=hoh, hso=hso, enim=enim,
             iz_onsite=iz_onsite, nmax=nmax, plain=plain)
     op = BlockOperator(hs, iz, cols, lsham, iz_onsite=iz_onsite, hoh=hoh,
                        hso=hso, enim=enim, nmax=nmax).to(psi0.device)
-    a_b, b2_b = block_lanczos(op, psi0, lld, plain=plain)
+    a_b, b2_b = block_lanczos(op, dense_start(psi0), lld, plain=plain)
     return a_b.cpu().numpy(), b2_b.cpu().numpy()
 
 
@@ -294,9 +316,8 @@ def _diverged(mu: np.ndarray) -> bool:
     return bool((last > 1.0e3).any())
 
 
-def chebyshev_moments_auto(hs, lsham, iz, cols, psi0: torch.Tensor,
-                           lld: int, a: float, b: float, *,
-                           hoh: bool = False, hso=None, enim=None,
+def chebyshev_moments_auto(hs, lsham, iz, cols, psi0, lld: int, a: float,
+                           b: float, *, hoh: bool = False, hso=None, enim=None,
                            iz_onsite=None, nmax: int = 0,
                            guard: bool = True,
                            plain: bool = False) -> np.ndarray:
@@ -305,7 +326,8 @@ def chebyshev_moments_auto(hs, lsham, iz, cols, psi0: torch.Tensor,
     wavefront where :func:`_wavefront_plan` engages.  Returns host mu
     (2 lld + 2, R, 18, 18).  The routes over the ranks are those of
     :func:`block_lanczos_auto`.  The divergence guard sees the gathered,
-    assembled 18 x 18 blocks, as the reference sums the full block."""
+    assembled 18 x 18 blocks, as the reference sums the full block.
+    ``psi0`` is a tensor or :class:`StartBlocks`, as there."""
     sec = _spin_sectors(hs, lsham, hso, enim, psi0)
     if sec is not None:
         outs = [chebyshev_moments_auto(h_, l_, iz, cols, p_, lld, a, b,
@@ -318,8 +340,8 @@ def chebyshev_moments_auto(hs, lsham, iz, cols, psi0: torch.Tensor,
                          psi0.device):
         routes["slab_cheb"] += 1
         mu = rowslab.chebyshev_moments_rowsharded(
-            get_mesh(), hs, lsham, iz, cols, psi0, lld, a, b, hoh=hoh,
-            hso=hso, enim=enim, iz_onsite=iz_onsite, nmax=nmax,
+            get_mesh(), hs, lsham, iz, cols, dense_start(psi0), lld, a, b,
+            hoh=hoh, hso=hso, enim=enim, iz_onsite=iz_onsite, nmax=nmax,
             plain=plain).cpu().numpy()
     elif (mesh := _mesh_for(psi0.shape[2] // psi0.shape[1])) is not None:
         routes["chains_cheb"] += 1
@@ -330,14 +352,17 @@ def chebyshev_moments_auto(hs, lsham, iz, cols, psi0: torch.Tensor,
             mesh, op, psi0, lld, a, b, plain=plain).cpu().numpy()
     elif (p := _wavefront_plan(cols, psi0, lld, hoh,
                                "chebyshev")) is not None:
+        local_routes["wavefront_cheb"] += 1
         mu = wavefront.chebyshev_moments_wavefront(
             hs, lsham, iz, cols, psi0, lld, a, b, p, hoh=hoh, hso=hso,
             enim=enim, iz_onsite=iz_onsite, nmax=nmax, plain=plain)
     else:
+        local_routes["full_cheb"] += 1
         op = BlockOperator(hs, iz, cols, lsham, iz_onsite=iz_onsite,
                            hoh=hoh, hso=hso, enim=enim,
                            nmax=nmax).to(psi0.device)
-        mu = chebyshev_moments(op, psi0, lld, a, b, plain=plain).cpu().numpy()
+        mu = chebyshev_moments(op, dense_start(psi0), lld, a, b,
+                               plain=plain).cpu().numpy()
     if not np.isfinite(mu).all() or (guard and _diverged(mu)):
         g_logger.fatal("Chebyshev moments did not converge. Check energy "
                        "limits energy_min and energy_max")

@@ -250,7 +250,7 @@ def make_mesh(group=None) -> Mesh:
 
 # ----------------------------------------------------------------------
 # chain sharding
-def shard_chains(mesh: Mesh, psi0: torch.Tensor, width: int = 1
+def shard_chains(mesh: Mesh, psi0, width: int = 1
                  ) -> Tuple[torch.Tensor, int]:
     """This rank's share of the chains of ``psi0`` (last axis, ``width``
     columns per chain: 1 for the scalar recursion, d for a start block).
@@ -258,11 +258,16 @@ def shard_chains(mesh: Mesh, psi0: torch.Tensor, width: int = 1
     The chain count is padded to a multiple of the world size with copies
     of chain 0 (exact: chains are independent; the JAX package's
     ``_pad_axis`` and copy of chain 0); returns (share, real chain
-    count)."""
+    count).  Of :class:`~..ops.block_lanczos.StartBlocks` only the share
+    is built, at kk + 1 rows."""
+    from ..ops.block_lanczos import StartBlocks
+
     n = psi0.shape[-1] // width
     per = -(-n // mesh.world)
     idx = torch.arange(mesh.rank * per, (mesh.rank + 1) * per)
     idx = torch.where(idx < n, idx, 0)
+    if isinstance(psi0, StartBlocks):
+        return psi0.select(idx.tolist()).dense(), n
     cols = (idx[:, None] * width + torch.arange(width)).reshape(-1)
     return psi0[..., cols.to(psi0.device)].contiguous(), n
 

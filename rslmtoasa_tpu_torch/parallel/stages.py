@@ -226,6 +226,50 @@ def chain_block(hs, lsham, iz, cols, starts, lld: int):
             "device": str(dev)}
 
 
+def pair_chains_sharded(lld: int = 5):
+    """The pair chains of the bcc preset (rc 8, ``nsp=2``; the onsite pair
+    and two nearest neighbours, R = 9) from their compact start blocks
+    through the dispatch, chain-sharded over the ranks and on one rank,
+    with each run's routes (``routes`` and ``local_routes`` of the
+    dispatch) and every rank's shapes of the start tensors built (one per
+    run)."""
+    from ..models.exchange import pair_start_blocks
+    from ..models.presets import build_synthetic_bcc
+    from ..ops.block_lanczos import StartBlocks
+
+    dev = _device()
+    mesh = make_mesh()
+    sysb = build_synthetic_bcc(rc=8.0, ndim=2000, lld=lld, nsp=2, device=dev)
+    hb = sysb.ham
+    blocks = pair_start_blocks(sysb.cluster.kk,
+                               np.array([[0, 0], [0, 1], [0, 2]]), dev)
+    built, place = [], StartBlocks._place
+
+    def recorded(self, n, where):
+        out = place(self, n, where)
+        built.append(tuple(out.shape))
+        return out
+
+    def run():
+        built.clear()
+        dispatch.routes.clear()
+        dispatch.local_routes.clear()
+        got = dispatch.block_lanczos_auto(hb.ee, hb.lsham, hb.iz, hb.cols,
+                                          blocks, lld)
+        return {"chains": got,
+                "routes": dict(dispatch.routes + dispatch.local_routes),
+                "built": per_rank(mesh, *(n for s in built for n in s))}
+
+    StartBlocks._place = recorded
+    try:
+        out = {"sharded": run()}
+        with single_rank():
+            out["one"] = run()
+    finally:
+        StartBlocks._place = place
+    return out
+
+
 # ----------------------------------------------------------------------
 # row slabs
 def slab_recursions(hs, lsham, iz, cols, starts, lld: int, *, hoh=False,

@@ -24,7 +24,7 @@ from rslmtoasa_tpu_torch.models import orbital
 from rslmtoasa_tpu_torch.models.scf import SelfConsistency
 from rslmtoasa_tpu_torch.models.exchange import (
     ExchangeCalculation,
-    pair_start_vectors,
+    pair_start_blocks,
 )
 from rslmtoasa_tpu_torch.models.presets import (
     IMPURITIES,
@@ -617,7 +617,7 @@ def test_block_step_kernel_on_pair_start_blocks(block_system, card, hoh):
     phases; the onsite pair's block one site) and on H applied to them."""
     pairs = exchange_pairs(block_system.cluster, 3) - 1
     op = _block_operator(block_system, 18, hoh, card)
-    psi = pair_start_vectors(op.kk, pairs, card)
+    psi = pair_start_blocks(op.kk, pairs, card).dense()
     assert psi.shape[2] == 18 * 13
     _k4_matches_plain(op, psi)
     _k4_matches_plain(op, bk.block_step(op.hs, op.iz, op.cols, psi,

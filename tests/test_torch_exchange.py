@@ -179,7 +179,7 @@ def test_pair_start_vectors_match_jax():
         NSHELL + 1)
     dead = np.setdiff1d(np.arange(want.shape[0]), chains)
     assert dead.tolist() == [1, 2, 3] and not want[dead].any()
-    got = pex.pair_start_vectors(kk, pairs, CPU)
+    got = pex.pair_start_blocks(kk, pairs, CPU).dense()
     assert torch.equal(got, torch.from_numpy(port_layout(want[chains])))
 
 
@@ -391,7 +391,7 @@ def test_plain_spmv_in_column_chunks(monkeypatch):
     hb = psys.ham
     kk = psys.cluster.kk
     pairs = presets.exchange_pairs(psys.cluster, NSHELL) - 1
-    psi = pex.pair_start_vectors(kk, pairs, CPU)
+    psi = pex.pair_start_blocks(kk, pairs, CPU).dense()
     psi[:kk] += torch.from_numpy(
         np.random.default_rng(5).standard_normal(psi[:kk].shape) * 0.1)
     cols = torch.from_numpy(hb.cols)

@@ -222,10 +222,11 @@ def test_jij_table_spans(monkeypatch, tmp_path):
     xc.calculate_exchange_twoindex()
     calls = _calls(fresh)
     assert calls == {"jij-table": 1, "build-bulkham": 1,
-                     "pair-recursion": 1, "terminators": 2,
-                     "intersite-gf": 1, "jij-integrals": 1,
-                     "jij-twoindex": 1}
+                     "pair-recursion": 1, "start-blocks": 1,
+                     "terminators": 2, "intersite-gf": 1,
+                     "jij-integrals": 1, "jij-twoindex": 1}
     table = fresh.root.children["jij-table"]
+    assert "start-blocks" in table.children["pair-recursion"].children
     assert "terminators" in table.children
     assert "terminators" in table.children["intersite-gf"].children
     _children_within_parents(fresh)

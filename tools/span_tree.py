@@ -13,6 +13,9 @@ port's ``g_timer`` sections:
   span other than the roots (``scf-iteration``, ``jij-table``) and the
   phases (``recursion-phase``, ``dos-phase``), which are structure, not
   layers; ``uncovered_pct`` is the rest, as a share of the wall;
+* ``routes``: the dispatch's routes (``parallel/dispatch.py routes`` and
+  ``local_routes``) taken in the window, summed over its jobs: which route
+  the recursions took (``wavefront_block``, ``full_block``, ...);
 * ``log_ms``: ms a job in the logger's calls (``utils/logger.py``), and
   the part of it under no span but the roots and the phases
   (``log_uncovered_ms``); the tool wraps the logger, so the lines it
@@ -98,6 +101,7 @@ def main(argv, **kw) -> int:
         out_path = argv[i + 1]
         argv = argv[:i] + argv[i + 2:]
     from benchmark import harness
+    from rslmtoasa_tpu_torch.parallel import dispatch
     from rslmtoasa_tpu_torch.utils.timer import g_timer
 
     from rslmtoasa_tpu_torch.utils.logger import Logger
@@ -121,11 +125,14 @@ def main(argv, **kw) -> int:
 
     def window(job, seconds, device, traced):
         before = snapshot(g_timer.root)
+        routes = dispatch.routes + dispatch.local_routes
         log[0] = True
         walls, window_s, prof = inner(job, seconds, device, traced)
         log[0] = False
         after = snapshot(g_timer.root)
         seen.update(tree_summary(before, after, walls))
+        seen["routes"] = dict(dispatch.routes + dispatch.local_routes
+                              - routes)
         seen["log_ms"] = 1e3 * log[1] / len(walls)
         seen["log_uncovered_ms"] = 1e3 * log[2] / len(walls)
         seen["window_ms_per_job"] = 1e3 * window_s / len(walls)
