@@ -17,6 +17,8 @@ solver for the LDA functionals, and on the Python one
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
 from dataclasses import dataclass
 from typing import Optional
 
@@ -83,8 +85,15 @@ def update_fermi_in_input(fermi: float, filename: str):
                     line += "\n"
                 done = True
         out.append(line)
-    with open(filename, "w") as fh:
+    # every rank of a run rewrites the file: replace it whole, so that no
+    # rank reads it truncated by another and writes that back
+    path = os.path.realpath(filename)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
+                               prefix=os.path.basename(path))
+    with os.fdopen(fd, "w") as fh:
         fh.writelines(out)
+    shutil.copymode(path, tmp)
+    os.replace(tmp, path)
 
 
 def magnetic_torques(atoms, iz_rec) -> np.ndarray:

@@ -291,15 +291,18 @@ class StartBlocks:
         """(kk+1, d, R d) on ``device``: the full width's start tensor."""
         return self._place(self.kk + 1, lambda row: row)
 
-    def on_rows(self, index: np.ndarray, n: int) -> torch.Tensor:
+    def on_rows(self, index, n: int) -> torch.Tensor:
         """(n+1, d, R d): row ``index[row]`` of the result holds row
         ``row``'s blocks, row n is zero (a wavefront's first stage, in the
-        plan's order); raises where a start row lies beyond the first n."""
-        pos = np.asarray(index)[self.rows]
-        if pos.size and pos.max() >= n:
+        plan's order); raises where a start row lies beyond the first n.
+        ``index`` is an array or a tensor on any device, of which only the
+        chains' rows are read."""
+        rows = sorted({row for ch in self.chains for row, _ in ch})
+        at = dict(zip(rows, index[rows].tolist()))
+        if any(at[row] >= n for row in self.rows.tolist()):
             raise ValueError("psi0 has nonzero rows outside the plan's "
                              "first stage")
-        return self._place(n + 1, lambda row: int(index[row]))
+        return self._place(n + 1, at.__getitem__)
 
 
 def dense_start(psi0) -> torch.Tensor:

@@ -6,22 +6,31 @@ Port of ``rslmtoasa_tpu/ops/wavefront.py`` (reference ``create_ll_map`` /
 atoms within ``ll`` hops of its start atom, so each step's SpMV needs only
 those rows:
 
-1. a host BFS over the neighbour table gives each atom its hop distance to
-   the nearest start atom (:func:`hop_distances`);
-2. the atoms are ordered by that distance, so that the rows a step reads
-   are a prefix of the permuted cluster;
+1. a level-synchronous BFS over the neighbour table gives each atom its
+   hop distance to the nearest start atom (:func:`hop_distances`);
+2. the atoms are ordered by that distance (a stable sort), so that the rows
+   a step reads are a prefix of the permuted cluster;
 3. the steps are grouped into *stages* of one power-of-two prefix length
    (multiples of ``granularity`` = 512, as the JAX package's plan), and the
    carried vectors grow by zero rows between stages.
 
-The host half (:class:`WavefrontPlan`, :func:`make_plan`,
-:func:`make_plan_chebyshev`) is a NumPy copy of the JAX package's, so both
-packages run the same stages.  The device half runs each stage's steps
-through the kernels on the row prefix: K1' ``spmv_dot`` (or K2' where
-``roll`` selects it) and K3' ``update_norm`` for the scalar recursion, K4
-``block_step`` for the block and Chebyshev ones.  The tables are permuted
-once per call, on the card, into one operator; a stage launches on its
-first n rows with every column beyond them sent to the zero row n
+The plan (:class:`WavefrontPlan`, :func:`make_plan`,
+:func:`make_plan_chebyshev`) is the JAX package's, bit for bit, so both
+packages run the same stages.  It is made on the device of the
+neighbour table it is given: the dispatch uploads ``cols`` once to the
+recursion's device, runs the BFS (one ``nonzero`` a level) and the stable
+sort there, and copies back only ``n_read``, from which the host builds
+the stages; the recursion then permutes the same uploaded table with the
+plan's ``perm`` and ``inv`` where they lie.
+NumPy arrays give a plan on the CPU in NumPy arrays.  :data:`plan_counts`
+counts the plans by where they were made, and the BFS levels they took.
+
+The recursions run each stage's steps through the kernels on the row
+prefix: K1' ``spmv_dot`` (or K2' where ``roll`` selects it) and K3'
+``update_norm`` for the scalar recursion, K4 ``block_step`` for the block
+and Chebyshev ones.  The tables are permuted once per call, on the card,
+into one operator; a stage launches on its first n rows with every column
+beyond them sent to the zero row n
 (:func:`~.haydock_kernels.prefix_tables`).  There is nothing to trace: the
 stages only cut the SpMV's rows, and the glue is the full-width route's
 own (:func:`~.lanczos.lanczos_coefficients`,
@@ -38,6 +47,7 @@ the last of them.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,30 +58,56 @@ from .block_lanczos import (BlockOperator, StartBlocks, block_lanczos,
 from .chebyshev import chebyshev_moments
 from .lanczos import HaydockOperator
 
+#: the plans made: ``device_plans`` from a tensor table (the BFS and the
+#: sort on its device), ``host_plans`` from NumPy arrays, and ``levels``,
+#: the BFS levels they took; callers zero it to see what a run planned
+plan_counts: Counter = Counter()
+
 
 # ----------------------------------------------------------------------
-# host half (the JAX package's create_ll_map analogue, one BFS per batch)
-def hop_distances(cols: np.ndarray, kk: int, starts: Sequence[int]
-                  ) -> np.ndarray:
+# the plan (the JAX package's create_ll_map analogue, one BFS per batch)
+def device_table(t, device) -> torch.Tensor:
+    """An index table (``cols``, ``iz``) as int32 on ``device``: a tensor
+    already there as it is, anything else in one copy."""
+    if torch.is_tensor(t):
+        return t.to(device, torch.int32)
+    return torch.as_tensor(np.ascontiguousarray(t),
+                           dtype=torch.int32).to(device)
+
+
+def _bfs(cols: torch.Tensor, kk: int, starts) -> Tuple[torch.Tensor, int]:
+    """(kk,) int32 hop distances on ``cols``' device (``kk + 1`` where
+    unreachable) and the levels the BFS took (the first level that reached
+    no atom).  Each level gathers the frontier's rows of ``cols``, flags
+    the atoms among them that have no distance yet (the sentinel ``kk``
+    counts as having one), gives them the level and takes them as the next
+    frontier: one ``nonzero`` a level, no sort."""
+    far = kk + 1
+    dist = torch.full((kk + 1,), far, dtype=torch.int32, device=cols.device)
+    dist[kk] = 0
+    frontier = torch.as_tensor(starts, dtype=torch.long, device=cols.device)
+    dist[frontier] = 0
+    flag = torch.empty(kk + 1, dtype=torch.bool, device=cols.device)
+    level = 0
+    while frontier.numel():
+        level += 1
+        flag.zero_()
+        flag[cols[frontier].flatten()] = True
+        flag &= dist == far
+        dist.masked_fill_(flag, level)
+        frontier = flag.nonzero().squeeze(1)
+    return dist[:kk], level
+
+
+def hop_distances(cols, kk: int, starts: Sequence[int]):
     """Hop distance of every atom to the nearest start atom.
 
     ``cols`` is the (kk, nslots) ELL neighbour table with sentinel ``kk``
-    for missing neighbours (slot 0 = onsite).  Level-synchronous BFS on
-    the host; unreachable atoms get ``kk + 1``.
-    """
-    cols = np.asarray(cols)
-    dist = np.full(kk, kk + 1, dtype=np.int64)
-    frontier = np.unique(np.asarray(list(starts), dtype=np.int64))
-    dist[frontier] = 0
-    level = 0
-    while frontier.size:
-        nxt = np.unique(cols[frontier].ravel())
-        nxt = nxt[nxt < kk]
-        nxt = nxt[dist[nxt] > level + 1]
-        dist[nxt] = level + 1
-        frontier = nxt
-        level += 1
-    return dist
+    for missing neighbours (slot 0 = onsite).  Level-synchronous BFS, on
+    the table's device for a tensor (an int32 tensor there), on the CPU
+    for an array (an int64 array); unreachable atoms get ``kk + 1``."""
+    dist = _bfs(torch.as_tensor(cols), kk, starts)[0]
+    return dist if torch.is_tensor(cols) else dist.numpy().astype(np.int64)
 
 
 class WavefrontPlan:
@@ -80,18 +116,29 @@ class WavefrontPlan:
     ``reach`` is the per-step hop reach of the SpMV *output* rows: the
     step-``i`` SpMV only needs the rows within ``reach[i]`` hops of a
     start atom.  Steps are grouped into stages of identical
-    power-of-two-ish prefix length."""
+    power-of-two-ish prefix length.
 
-    def __init__(self, cols: np.ndarray, kk: int, starts: Sequence[int],
+    Made from a tensor ``cols``, the BFS, the stable sort of the distances
+    (``perm``) and its inverse (``inv``) run on the tensor's device and
+    stay there; only ``n_read`` comes to the host.  Made from an array,
+    ``perm`` and ``inv`` are NumPy arrays.  Either way they equal the JAX
+    package's."""
+
+    def __init__(self, cols, kk: int, starts: Sequence[int],
                  reach: Sequence[int], granularity: int = 512):
-        dist = hop_distances(cols, kk, starts)
-        self.perm = np.argsort(dist, kind="stable")
-        self.inv = np.empty(kk, dtype=np.int64)
-        self.inv[self.perm] = np.arange(kk)
-        dist_sorted = dist[self.perm]
-        self.n_read = np.minimum(
-            np.searchsorted(dist_sorted, np.asarray(reach), side="right"),
-            kk)
+        host = not torch.is_tensor(cols)
+        dist, levels = _bfs(torch.as_tensor(cols), kk, starts)
+        plan_counts["host_plans" if host else "device_plans"] += 1
+        plan_counts["levels"] += levels
+        dist_sorted, perm = torch.sort(dist, stable=True)
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(kk, device=perm.device)
+        self.perm, self.inv = ((perm.numpy(), inv.numpy()) if host
+                               else (perm, inv))
+        self.n_read = torch.searchsorted(
+            dist_sorted, torch.as_tensor(np.asarray(reach), dtype=dist.dtype,
+                                         device=dist.device),
+            right=True).cpu().numpy()
 
         # power-of-two-ish buckets, multiples of `granularity`
         def _bucket(n):
@@ -154,20 +201,21 @@ def make_plan_chebyshev(cols, kk: int, starts, lld: int, *,
 
 
 # ----------------------------------------------------------------------
-# device half
+# the recursions on the plan
 def permuted_start(psi0, plan: WavefrontPlan) -> torch.Tensor:
     """The first stage's rows of ``psi0`` (kk+1, d, C), in the plan's
     order, with a zero row appended; raises where ``psi0`` has a nonzero
     row beyond them.  :class:`~.block_lanczos.StartBlocks` are built on
-    those n0 + 1 rows directly, the same bits as the tensor's rows."""
+    those n0 + 1 rows directly, the same bits as the tensor's rows.  Of
+    ``inv`` only the start rows' entries are read."""
     kk, n0 = plan.kk, plan.stages[0][0]
     if psi0.shape[0] != kk + 1:
         raise ValueError(f"psi0 has {psi0.shape[0]} rows, the plan kk + 1 "
                          f"= {kk + 1}")
     if isinstance(psi0, StartBlocks):
         return psi0.on_rows(plan.inv, n0)
-    rows = (psi0 != 0).flatten(1).any(1).nonzero().squeeze(1).cpu().numpy()
-    if rows.size and (rows.max() >= kk or plan.inv[rows].max() >= n0):
+    rows = (psi0 != 0).flatten(1).any(1).nonzero().squeeze(1).tolist()
+    if rows and (rows[-1] >= kk or max(plan.inv[rows].tolist()) >= n0):
         raise ValueError("psi0 has nonzero rows outside the plan's first "
                          "stage")
     perm = torch.as_tensor(plan.perm[:n0], device=psi0.device)
@@ -176,11 +224,10 @@ def permuted_start(psi0, plan: WavefrontPlan) -> torch.Tensor:
 
 def _device_tables(plan, device, *tables):
     """The plan's permutation of the row tables (None passes), on
-    ``device``."""
+    ``device``; a table already there (the dispatch's uploaded ``cols``)
+    is not copied again."""
     return plan.permute_tables(*(
-        None if t is None else torch.as_tensor(
-            np.ascontiguousarray(t), dtype=torch.int32).to(device)
-        for t in tables))
+        None if t is None else device_table(t, device) for t in tables))
 
 
 def lanczos_coefficients_wavefront(

@@ -154,7 +154,10 @@ def _wavefront_plan(cols, psi0, lld: int, hoh: bool,
     where the plan's work is not under 0.7 of the full width's (the JAX
     package's ``_wavefront_plan``, ``parallel/dispatch.py`` :131).  With
     ``hoh`` H reaches two hops per application; ``kind="chebyshev"`` plans
-    the moments' pre-step too."""
+    the moments' pre-step too.  The plan is made on the device of
+    ``cols``, the caller's table uploaded once to ``psi0``'s device and
+    handed on to the recursion: the BFS and the sort run there, and only
+    the prefix lengths come back to the host."""
     kk = psi0.shape[0] - 1
     if kk < int(os.environ.get("RSLMTO_WAVEFRONT_KK", "30000")):
         return None
@@ -162,14 +165,12 @@ def _wavefront_plan(cols, psi0, lld: int, hoh: bool,
         starts = psi0.rows
     else:
         starts = (psi0[:kk] != 0).flatten(1).any(1).nonzero().squeeze(1)
-        starts = starts.cpu().numpy()
-    if starts.size == 0 or starts.size > MAX_STARTS:
+    if len(starts) == 0 or len(starts) > MAX_STARTS:
         return None
     mk = (wavefront.make_plan_chebyshev if kind == "chebyshev"
           else wavefront.make_plan)
     with g_timer.section("wavefront-plan"):
-        p = mk(np.asarray(cols), kk, starts, lld,
-               hops_per_step=2 if hoh else 1)
+        p = mk(cols, kk, starts, lld, hops_per_step=2 if hoh else 1)
     if p.work >= 0.7 * p.dense_work:
         return None
     g_logger.debug(f"wavefront: stages {p.stages}, "
@@ -192,6 +193,7 @@ def lanczos_auto(hs, iz, cols, psi0: torch.Tensor, lld: int, *,
         run = rowslab.lanczos_rowsharded if slabs else mesh_mod.lanczos_sharded
         a, b2 = run(mesh, hs, iz, cols, psi0, lld, plain=plain, roll=roll)
         return a.cpu().numpy(), b2.cpu().numpy()
+    cols = wavefront.device_table(cols, psi0.device)
     p = _wavefront_plan(cols, psi0, lld, False)
     local_routes["full_scalar" if p is None else "wavefront_scalar"] += 1
     if p is not None:
@@ -296,6 +298,7 @@ def block_lanczos_auto(hs, lsham, iz, cols, psi0, lld: int, *,
         a_b, b2_b = mesh_mod.block_lanczos_sharded(mesh, op, psi0, lld,
                                                    plain=plain)
         return a_b.cpu().numpy(), b2_b.cpu().numpy()
+    cols = wavefront.device_table(cols, psi0.device)
     p = _wavefront_plan(cols, psi0, lld, hoh)
     local_routes["full_block" if p is None else "wavefront_block"] += 1
     if p is not None:
@@ -350,19 +353,20 @@ def chebyshev_moments_auto(hs, lsham, iz, cols, psi0, lld: int, a: float,
                            nmax=nmax).to(psi0.device)
         mu = mesh_mod.chebyshev_moments_sharded(
             mesh, op, psi0, lld, a, b, plain=plain).cpu().numpy()
-    elif (p := _wavefront_plan(cols, psi0, lld, hoh,
-                               "chebyshev")) is not None:
-        local_routes["wavefront_cheb"] += 1
-        mu = wavefront.chebyshev_moments_wavefront(
-            hs, lsham, iz, cols, psi0, lld, a, b, p, hoh=hoh, hso=hso,
-            enim=enim, iz_onsite=iz_onsite, nmax=nmax, plain=plain)
     else:
-        local_routes["full_cheb"] += 1
-        op = BlockOperator(hs, iz, cols, lsham, iz_onsite=iz_onsite,
-                           hoh=hoh, hso=hso, enim=enim,
-                           nmax=nmax).to(psi0.device)
-        mu = chebyshev_moments(op, dense_start(psi0), lld, a, b,
-                               plain=plain).cpu().numpy()
+        cols = wavefront.device_table(cols, psi0.device)
+        p = _wavefront_plan(cols, psi0, lld, hoh, "chebyshev")
+        local_routes["full_cheb" if p is None else "wavefront_cheb"] += 1
+        if p is not None:
+            mu = wavefront.chebyshev_moments_wavefront(
+                hs, lsham, iz, cols, psi0, lld, a, b, p, hoh=hoh, hso=hso,
+                enim=enim, iz_onsite=iz_onsite, nmax=nmax, plain=plain)
+        else:
+            op = BlockOperator(hs, iz, cols, lsham, iz_onsite=iz_onsite,
+                               hoh=hoh, hso=hso, enim=enim,
+                               nmax=nmax).to(psi0.device)
+            mu = chebyshev_moments(op, dense_start(psi0), lld, a, b,
+                                   plain=plain).cpu().numpy()
     if not np.isfinite(mu).all() or (guard and _diverged(mu)):
         g_logger.fatal("Chebyshev moments did not converge. Check energy "
                        "limits energy_min and energy_max")

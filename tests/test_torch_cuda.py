@@ -53,6 +53,7 @@ from rslmtoasa_tpu_torch.ops.lanczos import (
     lanczos_coefficients,
     scalar_start_vectors,
 )
+from rslmtoasa_tpu_torch.parallel import dispatch
 from rslmtoasa_tpu_torch.physics.greens import bgreen, get_terminf
 from test_torch_terminator import LLDS, edge_chains
 
@@ -889,6 +890,58 @@ def test_impurity_wavefront_through_k4(card, hoh, monkeypatch):
     for g, w, d in zip(got, want, dense):
         assert np.abs(g - w).max() <= 1e-11
         assert np.abs(g - d).max() <= 1e-11
+
+
+@pytest.fixture(scope="module")
+def box32(card):
+    """A box-32 bcc cluster (kk = 32 768, above the dispatch's 30 000 rows,
+    ``nsp=2`` with spin-orbit coupling) and the exchange's pair start
+    blocks of its atom 1 and two shells, on the card."""
+    sys_ = build_synthetic_bcc(box=32, nsp=2, lld=6, device="cpu")
+    assert sys_.cluster.kk > 30000
+    return sys_, pair_start_blocks(
+        sys_.cluster.kk, exchange_pairs(sys_.cluster, 2) - 1, card)
+
+
+def test_plan_on_the_card(box32, card, monkeypatch):
+    """On ``box32``: the plan made on the card (the BFS and the sort there)
+    equals the NumPy plan field for field; the dispatch makes one such
+    plan, uploads ``cols`` once, and recurs to the host plan's
+    coefficients bit for bit."""
+    lld = 6
+    sys_, blocks = box32
+    hb, kk = sys_.ham, sys_.cluster.kk
+    host = wavefront.make_plan(hb.cols, kk, blocks.rows, lld)
+    assert host.work < 0.7 * host.dense_work
+    got = wavefront.make_plan(wavefront.device_table(hb.cols, card), kk,
+                              torch.as_tensor(blocks.rows, device=card), lld)
+    for f in ("perm", "inv"):
+        assert getattr(got, f).device == card
+        assert np.array_equal(getattr(got, f).cpu().numpy(),
+                              getattr(host, f)), f
+    assert np.array_equal(got.n_read, host.n_read)
+    assert (got.stages, got.work, got.dense_work) == (
+        host.stages, host.work, host.dense_work)
+    uploads = []
+    upload = wavefront.device_table
+
+    def counted(t, device):
+        uploads.append(t is hb.cols)
+        return upload(t, device)
+
+    monkeypatch.setattr(wavefront, "device_table", counted)
+    monkeypatch.delenv("RSLMTO_WAVEFRONT_KK", raising=False)
+    plans = wavefront.plan_counts["device_plans"]
+    routes = dispatch.local_routes["wavefront_block"]
+    tabs = hb.ee, hb.lsham, hb.iz, hb.cols
+    a_b, b2_b = dispatch.block_lanczos_auto(*tabs, blocks, lld)
+    assert uploads.count(True) == 1
+    assert wavefront.plan_counts["device_plans"] - plans == 1
+    assert dispatch.local_routes["wavefront_block"] - routes == 1
+    want = wavefront.block_lanczos_wavefront(*tabs, blocks, lld, host)
+    for g, w in zip((a_b, b2_b), want):
+        assert g.shape == w.shape == (lld, 9, 18, 18)
+        assert torch.equal(torch.from_numpy(g), torch.from_numpy(w))
 
 
 # ----------------------------------------------------------------------

@@ -15,6 +15,8 @@ outputs.
 import os
 import re
 import shutil
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -25,11 +27,15 @@ from rslmtoasa_tpu.models.presets import build_synthetic_bcc as jax_bcc
 from rslmtoasa_tpu.models.scf import SelfConsistency as JaxSCF
 from rslmtoasa_tpu_torch.cli import main as torch_cli
 from rslmtoasa_tpu_torch.convert import system_from_numpy, system_to_numpy
+from rslmtoasa_tpu_torch.models import scf as scf_module
 from rslmtoasa_tpu_torch.models.presets import (
     build_synthetic_bcc,
     synthetic_bcc_config,
 )
-from rslmtoasa_tpu_torch.models.scf import SelfConsistency
+from rslmtoasa_tpu_torch.models.scf import (
+    SelfConsistency,
+    update_fermi_in_input,
+)
 from rslmtoasa_tpu_torch.ops import haydock_kernels as hk
 from rslmtoasa_tpu_torch.utils.namelist import write_namelist
 
@@ -146,6 +152,53 @@ def test_cli_matches_jax_cli(tmp_path, capsys):
             "rs2paoham.dat"} <= torch_files
     for fname in sorted(torch_files):
         _assert_files_close(dirs["jax"] / fname, dirs["torch"] / fname)
+
+
+def test_fermi_rewrites_at_once_keep_the_input(tmp_path):
+    """Every rank of a multi-rank run rewrites ``fermi`` in the same input
+    file: four threads doing so at once leave the whole file, with the new
+    value and its comment, and no temporary file beside it."""
+    text = "&control\n  recur = 'block'\n/\n&energy\n  fermi = -0.1 ! eF\n/\n"
+    path = tmp_path / "input.nml"
+    path.write_text(text)
+    go = threading.Barrier(4)
+
+    def rewrite():
+        go.wait(timeout=60)
+        for _ in range(300):
+            update_fermi_in_input(-0.25, str(path))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=rewrite) for _ in range(4)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(w.is_alive() for w in workers)
+    assert path.read_text() == text.replace("-0.1 ", "-0.250000 ")
+    assert os.listdir(tmp_path) == ["input.nml"]
+
+
+def test_fermi_rewrite_replaces_the_input_whole(tmp_path, monkeypatch):
+    """The input file is read and then replaced whole, never opened for
+    writing in place: another rank reading it at any moment reads all of
+    it, where a truncated file read back would be written back empty."""
+    path = tmp_path / "input.nml"
+    path.write_text("&energy\n  fermi = -0.1\n/\n")
+    opened = []
+
+    def spy(file, mode="r", *args, **kw):
+        opened.append((os.path.realpath(file), mode))
+        return open(file, mode, *args, **kw)
+
+    monkeypatch.setattr(scf_module, "open", spy, raising=False)
+    update_fermi_in_input(-0.25, str(path))
+    assert opened == [(os.path.realpath(path), "r")]
+    assert path.read_text() == "&energy\n  fermi = -0.250000 \n/\n"
 
 
 def test_scf_roll_matches_jax(runs, tmp_path, monkeypatch):

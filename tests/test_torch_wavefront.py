@@ -94,27 +94,74 @@ def _jax_psi0(kk, starts):
 
 # ----------------------------------------------------------------------
 # the plan
+def _host(x):
+    """A plan's field as a NumPy array (a tensor's copied to the host)."""
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+@pytest.mark.parametrize("tables", ["numpy", "torch"])
 @pytest.mark.parametrize("granularity", [128, 512])
 @pytest.mark.parametrize("kind,hops", [("lanczos", 1), ("lanczos", 2),
                                        ("chebyshev", 1)])
-def test_plan_matches_jax(bcc, kind, hops, granularity):
+def test_plan_matches_jax(bcc, kind, hops, granularity, tables):
+    """The plan from host arrays, and from torch tables (the BFS and the
+    sort on the tables' device, as the dispatch makes it), against the JAX
+    package's: the distances, ``perm``, ``inv``, ``n_read``, the stages,
+    the work and the permuted tables equal."""
     kk, cols = bcc["kk"], bcc["cols"]
     starts = [0, 3]
-    assert np.array_equal(pwf.hop_distances(cols, kk, starts),
-                          jwf.hop_distances(cols, kk, starts))
+    tabs = bcc["iz"], cols, bcc["iz"][::-1].copy()
+    if tables == "torch":
+        cols = pwf.device_table(cols, CPU)
+        starts = torch.tensor(starts)
+        tabs = tuple(pwf.device_table(t, CPU) for t in tabs)
+    assert np.array_equal(_host(pwf.hop_distances(cols, kk, starts)),
+                          jwf.hop_distances(bcc["cols"], kk, [0, 3]))
     mk = {"lanczos": (pwf.make_plan, jwf.make_plan),
           "chebyshev": (pwf.make_plan_chebyshev, jwf.make_plan_chebyshev)}
-    got, want = (f(cols, kk, starts, 8, hops_per_step=hops,
-                   granularity=granularity) for f in mk[kind])
-    assert np.array_equal(got.perm, want.perm)
-    assert np.array_equal(got.inv, want.inv)
+    got, want = (f(c, kk, s, 8, hops_per_step=hops, granularity=granularity)
+                 for f, c, s in zip(mk[kind], (cols, bcc["cols"]),
+                                    (starts, [0, 3])))
+    assert torch.is_tensor(got.perm) == (tables == "torch")
+    assert np.array_equal(_host(got.perm), want.perm)
+    assert np.array_equal(_host(got.inv), want.inv)
     assert np.array_equal(got.n_read, want.n_read)
     assert got.stages == want.stages
     assert (got.work, got.dense_work, got.kk) == (
         want.work, want.dense_work, want.kk)
-    tabs = bcc["iz"], cols, bcc["iz"][::-1].copy()
-    for g, w in zip(got.permute_tables(*tabs), want.permute_tables(*tabs)):
-        assert np.array_equal(g, w)
+    wtabs = bcc["iz"], bcc["cols"], bcc["iz"][::-1].copy()
+    for g, w in zip(got.permute_tables(*tabs), want.permute_tables(*wtabs)):
+        assert np.array_equal(_host(g), w)
+
+
+@pytest.mark.parametrize("tables", ["numpy", "torch"])
+def test_unreachable_atoms_come_last(tables):
+    """A ring of 40 atoms and, apart from it, a chain of 20 (its first
+    atom also joined to the last): the BFS from start rows given twice
+    reaches the ring only; the chain's atoms get ``kk + 1`` and come last
+    in index order, as the JAX package's NumPy plan puts them."""
+    kk, ring = 60, 40
+    cols = np.full((kk, 3), kk, dtype=np.int32)
+    cols[:, 0] = np.arange(kk)
+    cols[:ring, 1] = (np.arange(ring) + 1) % ring
+    cols[:ring, 2] = (np.arange(ring) - 1) % ring
+    cols[ring:-1, 1] = np.arange(ring + 1, kk)
+    cols[-1, 1] = ring
+    starts = [7, 7, 30, 7]
+    want = jwf.make_plan(cols, kk, starts, 5, granularity=8)
+    dist = jwf.hop_distances(cols, kk, starts)
+    assert (dist[ring:] == kk + 1).all() and dist[:ring].max() < kk + 1
+    assert np.array_equal(want.perm[ring:], np.arange(ring, kk))
+    c, s = cols, starts
+    if tables == "torch":
+        c, s = pwf.device_table(cols, CPU), torch.tensor(starts)
+    n = pwf.plan_counts["levels"]
+    got = pwf.make_plan(c, kk, s, 5, granularity=8)
+    assert pwf.plan_counts["levels"] - n == dist[:ring].max() + 1
+    assert np.array_equal(_host(pwf.hop_distances(c, kk, s)), dist)
+    for f in ("perm", "inv", "n_read"):
+        assert np.array_equal(_host(getattr(got, f)), getattr(want, f)), f
+    assert got.stages == want.stages
 
 
 # ----------------------------------------------------------------------
@@ -239,6 +286,32 @@ def test_dispatch_plans_as_jax(bcc, lowered, threshold, kind, hoh, lld):
     engages = int(threshold) <= kk and not (
         hoh and kind == "lanczos" and lld >= 4)
     assert (got is not None) == engages
+
+
+def test_dispatch_counts_its_plans(bcc, lowered, monkeypatch):
+    """One plan a recursion that engages, made from the torch table on
+    ``psi0``'s device, its BFS's levels counted; ``cols`` uploaded once a
+    recursion (the plan and the permuted tables, or the full-width
+    operator, share the upload); no plan below the threshold."""
+    kk, cols = bcc["kk"], bcc["cols"]
+    uploads = []
+    upload = pwf.device_table
+
+    def counted(t, device):
+        uploads.append(t is cols)
+        return upload(t, device)
+    monkeypatch.setattr(pwf, "device_table", counted)
+    psi0 = block_start_vectors(kk, [0, 3], CPU)
+    levels = int(jwf.hop_distances(cols, kk, [0, 3]).max()) + 1
+    for threshold, plans in ((LOW, 1), ("999999999", 0)):
+        lowered(threshold)
+        pwf.plan_counts.clear()
+        uploads.clear()
+        pdispatch.block_lanczos_auto(bcc["ee"], bcc["lsham"], bcc["iz"],
+                                     cols, psi0, 6)
+        assert pwf.plan_counts == ({"device_plans": 1, "levels": levels}
+                                   if plans else {})
+        assert uploads.count(True) == 1
 
 
 def test_dispatch_routes_through_the_wavefront(bcc, lowered, monkeypatch):

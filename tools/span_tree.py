@@ -16,6 +16,8 @@ port's ``g_timer`` sections:
 * ``routes``: the dispatch's routes (``parallel/dispatch.py routes`` and
   ``local_routes``) taken in the window, summed over its jobs: which route
   the recursions took (``wavefront_block``, ``full_block``, ...);
+* ``plans``: the wavefront's plans made in the window and the levels of
+  their BFS (``ops/wavefront.py plan_counts``), summed over its jobs;
 * ``log_ms``: ms a job in the logger's calls (``utils/logger.py``), and
   the part of it under no span but the roots and the phases
   (``log_uncovered_ms``); the tool wraps the logger, so the lines it
@@ -101,6 +103,7 @@ def main(argv, **kw) -> int:
         out_path = argv[i + 1]
         argv = argv[:i] + argv[i + 2:]
     from benchmark import harness
+    from rslmtoasa_tpu_torch.ops import wavefront
     from rslmtoasa_tpu_torch.parallel import dispatch
     from rslmtoasa_tpu_torch.utils.timer import g_timer
 
@@ -126,6 +129,7 @@ def main(argv, **kw) -> int:
     def window(job, seconds, device, traced):
         before = snapshot(g_timer.root)
         routes = dispatch.routes + dispatch.local_routes
+        plans = +wavefront.plan_counts
         log[0] = True
         walls, window_s, prof = inner(job, seconds, device, traced)
         log[0] = False
@@ -133,6 +137,7 @@ def main(argv, **kw) -> int:
         seen.update(tree_summary(before, after, walls))
         seen["routes"] = dict(dispatch.routes + dispatch.local_routes
                               - routes)
+        seen["plans"] = dict(wavefront.plan_counts - plans)
         seen["log_ms"] = 1e3 * log[1] / len(walls)
         seen["log_uncovered_ms"] = 1e3 * log[2] / len(walls)
         seen["window_ms_per_job"] = 1e3 * window_s / len(walls)
